@@ -1,0 +1,23 @@
+"""cluster_tools_tpu_torch — the PyTorch/CUDA port of cluster_tools_tpu.
+
+Runs the JAX package's main path, the fused multicut segmentation chain
+(``MulticutSegmentationWorkflow(fused=True)``), on an NVIDIA card: plain
+PyTorch for the device code, a hand-written CUDA kernel where the JAX
+package had a Pallas kernel (``csrc/``), and the same task configs,
+container formats and outputs.  Device tasks run on the global config's
+``"device"`` (default ``"cuda"``); the CPU is used only when asked for.
+"""
+
+__version__ = "0.1.0"
+
+from .core.workflow import Task, DummyTask, build
+from .core.runtime import BlockTask, FailedJobsError
+from .core.blocking import Blocking, blocks_in_volume, block_to_bb
+from .core.storage import file_reader
+from .workflows import MulticutSegmentationWorkflow
+
+__all__ = [
+    "Task", "DummyTask", "build", "BlockTask", "FailedJobsError",
+    "Blocking", "blocks_in_volume", "block_to_bb", "file_reader",
+    "MulticutSegmentationWorkflow",
+]

@@ -1,0 +1,67 @@
+"""Build-at-first-use for the package's native libraries.
+
+Both native sources of the package — the host C++ solvers
+(``native/src/solvers.cpp``, g++) and the CUDA kernels (``csrc/*.cu``,
+nvcc) — are compiled from the checkout the first time a process needs
+them, into ``<package>/_build/``, which ``.gitignore`` lists.  The
+library name embeds a hash of the sources and the compile command, so a
+stale binary (from an older checkout: git does not keep mtimes) is never
+loaded for edited sources.  Concurrent builders each publish a complete
+file by atomic rename.  A failed build raises with the compiler's output:
+no caller carries on without its library.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import subprocess
+import threading
+from typing import Dict, List, Sequence
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+_lock = threading.Lock()
+_built: Dict[str, str] = {}
+
+
+class BuildError(RuntimeError):
+    pass
+
+
+def library_path(name: str, sources: Sequence[str],
+                 cmd: Sequence[str]) -> str:
+    """The content-addressed path of ``name`` built from ``sources``."""
+    h = hashlib.sha256(" ".join(cmd).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_shared(name: str, sources: Sequence[str], compiler: List[str],
+                 timeout: float = 600.0) -> str:
+    """Compile ``sources`` with ``compiler`` (the command without the
+    sources and ``-o``) into a shared library once per content hash and
+    return its path."""
+    lib = library_path(name, sources, compiler)
+    with _lock:
+        if lib in _built:
+            return lib
+        if not os.path.exists(lib):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib}.tmp.{os.getpid()}"
+            cmd = list(compiler) + list(sources) + ["-o", tmp]
+            try:
+                res = subprocess.run(cmd, capture_output=True, text=True,
+                                     timeout=timeout)
+            except FileNotFoundError as e:
+                raise BuildError(f"cannot build {name}: compiler "
+                                 f"{compiler[0]!r} not found") from e
+            if res.returncode != 0:
+                raise BuildError(f"building {name} failed:\n{' '.join(cmd)}"
+                                 f"\n{res.stdout}\n{res.stderr}")
+            os.replace(tmp, lib)
+        _built[lib] = lib
+        return lib

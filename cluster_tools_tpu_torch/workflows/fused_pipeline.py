@@ -1,0 +1,871 @@
+"""Fused per-block segmentation chain on the card: watershed + relabel +
+RAG + edge features in one pass per block against a DEVICE-RESIDENT
+volume.
+
+Port of cluster_tools_tpu/workflows/fused_pipeline.py, ``ws_method="device"``
+(the streamed resident path).  Per block:
+
+* the reflect-padded input volume uploads ONCE; each block slices its
+  outer window from device memory;
+* :func:`resident_block` runs the chain: normalize -> EDT (the CUDA
+  min-plus kernel) -> filters -> seed connected components -> 2x-COARSE
+  basin watershed with full-res refinement (ops/watershed.coarse) -> dense
+  per-block relabel (the driver adds a running global offset, so written
+  fragments are globally consecutive) -> interior RAG pairs compacted
+  ONCE per pair with both side samples -> per-edge statistics (exact
+  256-bin histograms for uint8 inputs) -> run-length coding of the labels;
+* the block's meta/edge table and its run-length stream are copied into
+  pinned host buffers with ``non_blocking=True`` right after the block's
+  work is enqueued, and the drain waits on a CUDA event recorded after the
+  copies — block i's download overlaps block i+1's compute;
+* fragments stage in host RAM (``_FRAGMENT_CACHE``), so FusedFaceAssembly
+  and the final write compose from memory instead of re-reading the store.
+
+Cross-block (face) edges cannot be known in a single pass — the neighbor
+block's ids do not exist yet — so a cheap host task (FusedFaceAssembly)
+adds them afterwards from the staged planes, completing the per-block
+sub-graphs in the exact format the merge/solve stack consumes.
+
+The device is the global config's ``"device"`` (default ``"cuda"``): a run
+that asks for the card on a machine without one raises; nothing falls back
+to the CPU.  ``ws_method`` ``hybrid`` and ``legacy`` and ``mesh_resident``
+are not ported (ROADMAP A7b, A14) and raise.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import graph as g
+from ..core.blocking import Blocking
+from ..core.config import write_config
+from ..core.runtime import BlockTask
+from ..core.storage import file_reader
+from ..core.workflow import FileTarget, Task
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device a device task runs on.  Asking for a card that is
+    not there raises: the caller asked for the card, not for the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but no CUDA device is available; "
+            "set the global config's \"device\" to \"cpu\" to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return dev
+
+
+def _staged_path(tmp_folder: str, block_id: int) -> str:
+    return os.path.join(tmp_folder, f"fused_feats_raw_block_{block_id}.npz")
+
+
+# ---------------------------------------------------------------------------
+# in-process staging caches (the ``gpu`` target runs every task inline in the
+# driver process): the fused pass keeps each block's dense LOCAL labels and
+# the raw input volume in host RAM, so FusedFaceAssembly and the final write
+# compose from memory instead of re-reading the store.  Tasks that run in
+# OTHER processes (``local`` target workers) miss the cache and fall back to
+# store reads — the cache is an overlap optimization, never a correctness
+# dependency.
+# ---------------------------------------------------------------------------
+
+#: (ws_path, ws_key, block_id) -> (local_dense uint16/uint32, offset, bb)
+_FRAGMENT_CACHE: Dict = {}
+#: (input_path, input_key) -> (host volume array, is_raw_uint8)
+_RAW_CACHE: Dict = {}
+
+
+def fragment_cache_get(path: str, key: str, block_id: int,
+                       expect_bb=None):
+    """Staged (local_dense, offset, bb) for a block, or None.  A hit is
+    only valid when the fused pass's block grid matches the consumer's
+    bounding box ``expect_bb``."""
+    ent = _FRAGMENT_CACHE.get((os.path.abspath(path), key, block_id))
+    if ent is not None and expect_bb is not None and \
+            tuple(ent[2]) != tuple(expect_bb):
+        return None
+    return ent
+
+
+def raw_cache_get(path: str, key: str):
+    return _RAW_CACHE.get((os.path.abspath(path), key))
+
+
+def clear_caches() -> None:
+    from ..core import runtime as rt
+    _FRAGMENT_CACHE.clear()
+    _RAW_CACHE.clear()
+    rt.ledger_clear("fragment_cache")
+    rt.ledger_clear("raw_cache")
+
+
+def _fragment_cache_put(key, local, off, bb) -> None:
+    """Insert into the fragment cache, keeping the live-buffer ledger in
+    sync (overwrites release the previous entry's bytes first)."""
+    from ..core import runtime as rt
+    prev = _FRAGMENT_CACHE.get(key)
+    _FRAGMENT_CACHE[key] = (local, int(off), bb)
+    rt.ledger_add("fragment_cache",
+                  int(local.nbytes) - (int(prev[0].nbytes) if prev else 0),
+                  0 if prev else 1)
+
+
+def _raw_cache_put(key, vol, is_u8) -> None:
+    from ..core import runtime as rt
+    prev = _RAW_CACHE.get(key)
+    _RAW_CACHE[key] = (vol, is_u8)
+    rt.ledger_add("raw_cache",
+                  int(vol.nbytes) - (int(prev[0].nbytes) if prev else 0),
+                  0 if prev else 1)
+
+
+# ---------------------------------------------------------------------------
+# the per-block device chain
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ResidentParams:
+    """Everything the per-block chain depends on besides the block's
+    origin and extent (the JAX package's ``_resident_program`` args)."""
+    outer_shape: tuple
+    halo: tuple
+    is_u8: bool
+    threshold: float
+    sigma_seeds: float
+    sigma_weights: float
+    alpha: float
+    min_size: int
+    e_max: int
+    rle_cap: int
+    refine_rounds: int
+    pair_cap: int = 1 << 21
+    coarse_factor: int = 2
+
+
+def resident_block(vol: torch.Tensor, origin: Sequence[int],
+                   extent: Sequence[int], p: ResidentParams):
+    """The whole chain for one block of the resident padded volume ``vol``
+    (outer window at ``origin``, REAL clipped inner size ``extent``).
+
+    Returns ``(tbl, packed, dense_grid)`` on the volume's device: ``tbl``
+    is float32 ``(1 + e_max, 12)`` — row 0 the meta vector ``[k, n_runs,
+    e_overflow, cap_overflow, ok, n_rle, rle_ok]``, rows 1.. ``[u, v,
+    feats...]`` (every value exact in float32: ids < 2^15, counts <
+    2^24) — ``packed`` the int64 run-length stream and ``dense_grid`` the
+    int32 dense inner labels."""
+    from ..ops.components import connected_components
+    from ..ops.edt import distance_transform_edt
+    from ..ops.filters import gaussian, local_maxima
+    from ..ops.rag import (boundary_pair_values, boundary_pair_values_dual,
+                           compact_valid, edge_stats_device,
+                           edge_stats_hist_packed)
+    from ..ops.sweep import rle_encode_packed
+    from ..ops.watershed import coarse, dense_relabel, extent_valid_mask
+
+    dev = vol.device
+    outer = p.outer_shape
+    inner_sl = tuple(slice(h, o - h) for h, o in zip(p.halo, outer))
+    x = vol[tuple(slice(o, o + s) for o, s in zip(origin, outer))]
+    xf = x.to(torch.float32) * (1.0 / 255.0) if p.is_u8 else x
+    fg = xf < p.threshold
+    dt = distance_transform_edt(fg)
+    hmap = gaussian(xf, p.sigma_weights) if p.sigma_weights else xf
+    height = p.alpha * hmap + (1.0 - p.alpha) * (
+        1.0 - dt / torch.clamp(dt.max(), min=1e-6))
+    dt_smooth = gaussian(dt, p.sigma_seeds) if p.sigma_seeds else dt
+    maxima = local_maxima(dt_smooth, radius=2) & fg
+    seeds = connected_components(maxima, connectivity=3,
+                                 method="propagation")
+    ws, ok = coarse(height, seeds, p.min_size, p.refine_rounds,
+                    p.coarse_factor, dense_ids=True)
+
+    # dense per-block relabel of the INNER region; the reflect-padded
+    # remainder of border blocks is masked out of the rank, the id count
+    # and the pair set.  Coarse ids are already dense on the coarse grid,
+    # so the presence table is coarse-voxel-sized
+    cf = p.coarse_factor
+    cn_bound = int(np.prod([-(-o // cf) for o in outer]))
+    inner = ws[inner_sl]
+    valid = extent_valid_mask(inner.shape, extent, device=dev)
+    dense_grid, k = dense_relabel(inner, cn_bound, valid=valid)
+
+    if p.is_u8:
+        # uint8 inputs keep their raw byte samples (the histogram
+        # statistics are exact); each pair compacts ONCE carrying both
+        # side samples packed into two int32 channels — (u, v) as
+        # u*2^15+v and the side bytes as a*256+b.  Packing needs every
+        # dense label < 2^15; the ok guard below routes any other block
+        # to the host fallback
+        u, v, va, vb, okp = boundary_pair_values_dual(dense_grid,
+                                                      x[inner_sl])
+        n = int(u.shape[0])
+        cap = max(min(p.pair_cap, 1 << int(np.ceil(np.log2(max(n, 2))))),
+                  1 << 13)
+        key = u * 32768 + v
+        vab = va.to(torch.int32) * 256 + vb.to(torch.int32)
+        (ckey, cvab), cok, cap_overflow = compact_valid(okp, [key, vab],
+                                                        cap)
+        uv, feats, n_runs, e_overflow = edge_stats_hist_packed(
+            ckey, cvab, cok, e_max=p.e_max)
+        ok = ok & (k < (1 << 15))
+    else:
+        # float inputs: the full sorted-position path; pair_cap is
+        # pair-denominated and this path carries two samples per pair
+        u, v, vals, okp = boundary_pair_values(dense_grid, xf[inner_sl])
+        n = int(u.shape[0])
+        cap = max(min(2 * p.pair_cap,
+                      1 << int(np.ceil(np.log2(max(n, 2))))), 1 << 14)
+        (cu, cv, cvals), cok, cap_overflow = compact_valid(
+            okp, [u, v, vals], cap)
+        uv, feats, n_runs, e_overflow = edge_stats_device(
+            cu, cv, cvals, cok, e_max=p.e_max)
+
+    packed, n_rle, rle_ok = rle_encode_packed(dense_grid.reshape(-1),
+                                              p.rle_cap)
+    meta = torch.stack([
+        k.to(torch.float32), n_runs.to(torch.float32),
+        e_overflow.to(torch.float32), cap_overflow.to(torch.float32),
+        ok.to(torch.float32),
+        torch.tensor(float(n_rle), device=dev),
+        torch.tensor(float(rle_ok), device=dev)])
+    body = torch.cat([uv.to(torch.float32), feats.to(torch.float32)], dim=1)
+    meta_row = torch.zeros((1, body.shape[1]), dtype=torch.float32,
+                           device=dev)
+    meta_row[0, :meta.shape[0]] = meta
+    tbl = torch.cat([meta_row, body], dim=0)
+    return tbl, packed, dense_grid
+
+
+class _BlockResult:
+    """A submitted block: its device outputs, pinned host copies of the
+    table and the run-length stream, and the event that marks the copies
+    done."""
+
+    def __init__(self, tbl, packed, dense_grid):
+        self.dense_grid = dense_grid
+        if tbl.device.type == "cuda":
+            self.tbl = torch.empty(tbl.shape, dtype=tbl.dtype,
+                                   pin_memory=True)
+            self.packed = torch.empty(packed.shape, dtype=packed.dtype,
+                                      pin_memory=True)
+            self.tbl.copy_(tbl, non_blocking=True)
+            self.packed.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.tbl, self.packed, self.event = tbl, packed, None
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# host fallback
+# ---------------------------------------------------------------------------
+
+
+def _host_block_fallback(data, cfg, halo, block, device="cpu"):
+    """Always-correct per-block redo (watershed capacity overflow on
+    pathological heights): the full-resolution basins watershed with
+    exact-capacity retry + numpy edge features, returning (dense
+    real-shaped labels, uv, feats, k)."""
+    from ..ops.rag import host_boundary_edge_features
+    from .watershed import as_normalized_float, run_ws_block
+
+    # the coarse solve just reported the capacity overflow — force the
+    # exact-capacity basins path instead of repeating a doomed attempt
+    cfg = {**cfg, "ws_algorithm": "basins"}
+    ws = run_ws_block(as_normalized_float(data), cfg, device=device)
+    inner_sl = tuple(slice(h, h + (b.stop - b.start))
+                     for h, b in zip(halo, block.bb))
+    inner = ws[inner_sl]
+    uniq = np.unique(inner)
+    nonzero = uniq[uniq > 0]
+    dense = np.searchsorted(nonzero, inner).astype("uint64") + 1
+    dense[inner == 0] = 0
+    bmap = as_normalized_float(data)[inner_sl]
+    uv_h, feats_h = host_boundary_edge_features(dense, bmap)
+    return dense, uv_h, feats_h, int(nonzero.size)
+
+
+class FusedSegmentationBlocks(BlockTask):
+    """The fused blockwise pass: fragments written with globally
+    consecutive ids (running offset, single job owns the device) plus
+    staged interior edge/feature tables per block."""
+
+    task_name = "fused_segmentation"
+
+    def __init__(self, input_path: str, input_key: str, output_path: str,
+                 output_key: str, problem_path: str, **kw):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.output_path = output_path
+        self.output_key = output_key
+        self.problem_path = problem_path
+        super().__init__(**kw)
+        # the card unless the global config asks for the CPU; no card
+        # raises here, at DAG construction, before any work starts
+        self.device = str(resolve_device(self.global_config.get("device",
+                                                                "cuda")))
+        method = self.task_config.get("ws_method", "device")
+        if method != "device":
+            raise NotImplementedError(
+                f"ws_method={method!r} is not ported yet (ROADMAP A7b); "
+                "use ws_method='device'")
+        if self.task_config.get("mesh_resident"):
+            raise NotImplementedError(
+                "mesh_resident is not ported yet (ROADMAP A14)")
+
+    @staticmethod
+    def default_task_config():
+        conf = BlockTask.default_task_config()
+        conf.update({
+            "threshold": 0.25, "sigma_seeds": 2.0, "sigma_weights": 2.0,
+            "size_filter": 25, "alpha": 0.8, "halo": [4, 32, 32],
+            # buffer capacities size the per-block downloads; overflows
+            # raise with a config pointer (e_max) or fall back to a dense
+            # download (rle_cap)
+            "e_max": 16384, "stream_window": 3,
+            # 'device' = resident-volume coarse-basins chain (the only
+            # execution strategy ported; 'hybrid'/'legacy' raise)
+            "ws_method": "device",
+            "rle_cap": 1 << 20, "refine_rounds": 3,
+            # coarse watershed pooling factor: 2 (conservative) or 4
+            "coarse_factor": 2,
+            # pair-compaction capacity; an overflowing block is redone at
+            # the worst-case capacity, so the tight default only costs
+            # when it trips
+            "pair_cap": 1 << 21,
+            # host-tail pool for the resident drain: RLE decode + fragment
+            # staging + store write run per block in these threads while
+            # the main thread waits on the NEXT block's device work.
+            # 0 = fully sequential drain (bit-identical reference mode)
+            "writer_threads": 4,
+            # the JAX package's mesh-resident SPMD mode (not ported)
+            "mesh_resident": False, "mesh_shards": 0,
+            "mesh_e_max": 0, "mesh_pair_cap": 0,
+        })
+        return conf
+
+    def run_impl(self):
+        with file_reader(self.input_path, "r") as f:
+            shape = list(f[self.input_key].shape)
+        if len(shape) != 3:
+            raise NotImplementedError(
+                "the fused device path needs a 3d scalar store; the legacy "
+                "streamed path is not ported yet (ROADMAP A7b)")
+        block_shape = self.global_block_shape()[-len(shape):]
+        with file_reader(self.output_path) as f:
+            f.require_dataset(self.output_key, shape=shape,
+                              chunks=block_shape, dtype="uint64",
+                              compression="gzip")
+        block_list = self.blocks_in_volume(shape, block_shape)
+        # one job: the driver owns the device and the running offset
+        self.run_jobs(block_list, {
+            "input_path": self.input_path, "input_key": self.input_key,
+            "output_path": self.output_path, "output_key": self.output_key,
+            "problem_path": self.problem_path,
+            "shape": shape, "block_shape": block_shape,
+            "device": self.device,
+        }, n_jobs=1)
+
+    @classmethod
+    def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
+        cfg = job_config["config"]
+        blocking = Blocking(cfg["shape"], cfg["block_shape"])
+        halo = (cfg.get("halo") or [0] * blocking.ndim)[-blocking.ndim:]
+        outer_shape = tuple(b + 2 * h
+                            for b, h in zip(cfg["block_shape"], halo))
+        e_max = int(cfg.get("e_max", 65536))
+        f_in = file_reader(cfg["input_path"], "r")
+        f_out = file_reader(cfg["output_path"])
+        ds_in = f_in[cfg["input_key"]]
+        ds_out = f_out[cfg["output_key"]]
+        tmp_folder = job_config["tmp_folder"]
+
+        state = {"offset": np.uint64(0)}
+        max_ids: Dict[int, int] = {}
+        # per-run staging: a previous chain's fragments for the same store
+        # paths would otherwise be served to FusedFaceAssembly / the write
+        clear_caches()
+        cls._process_device(job_config, log_fn, blocking, halo, outer_shape,
+                            e_max, ds_in, ds_out, tmp_folder, state, max_ids)
+        with file_reader(cfg["output_path"]) as f:
+            f[cfg["output_key"]].attrs["maxId"] = int(state["offset"])
+        write_config(os.path.join(tmp_folder, "fused_max_ids.json"),
+                     {str(k_): v for k_, v in max_ids.items()})
+
+    @classmethod
+    def _process_device(cls, job_config, log_fn, blocking, halo,
+                        outer_shape, e_max, ds_in, ds_out, tmp_folder,
+                        state, max_ids):
+        """Resident-volume PIPELINED streaming loop: upload the padded
+        input volume ONCE, run the chain per block against it
+        (:func:`resident_block`), and start the table/RLE device-to-host
+        copies asynchronously at submit time so block i's downloads overlap
+        block i+1's compute.  The drain's host tail — RLE decode, fragment
+        staging, store write — runs in a bounded writer pool, so the main
+        thread's only sequential work is the meta parse that chains the
+        running label offset."""
+        from ..core import telemetry
+        from ..core.runtime import (stage, stage_add, stage_bytes,
+                                    stream_window, writer_pool)
+        from ..ops.edt import build_kernel
+        from ..ops.sweep import rle_decode_packed
+
+        cfg = job_config["config"]
+        device = resolve_device(cfg.get("device", "cuda"))
+        if device.type == "cuda":
+            with stage("host-build"):
+                build_kernel()
+        rle_cap = int(cfg.get("rle_cap", 1 << 22))
+        inner_shape = tuple(o - 2 * h for o, h in zip(outer_shape, halo))
+        n_inner = int(np.prod(inner_shape))
+        bs = cfg["block_shape"]
+        shape = cfg["shape"]
+
+        with stage("store-read"):
+            vol = ds_in[...]
+        stage_bytes("store-read", vol.nbytes)
+        mx = float(vol.max()) if vol.size else 0.0
+        is_u8 = (vol.dtype == np.uint8 and mx > 1
+                 and not cfg.get("invert_inputs", False))
+        # record the volume-level normalization so face assembly in OTHER
+        # processes puts face samples on the same scale as the interior
+        # samples (a thin plane's own max is not the volume's)
+        scale = 255.0 if (mx > 1.0 and mx <= 255) else (mx if mx > 1.0
+                                                        else 1.0)
+        write_config(os.path.join(tmp_folder, "fused_input_scale.json"),
+                     {"scale": scale,
+                      "invert": bool(cfg.get("invert_inputs", False))})
+        from .watershed import _normalize_input, reflect_indices
+
+        if not is_u8:
+            vol = _normalize_input(vol.astype("float32"), cfg).astype(
+                "float32")
+        _raw_cache_put((os.path.abspath(cfg["input_path"]),
+                        cfg["input_key"]), vol, is_u8)
+
+        gdims = [-(-s // b) for s, b in zip(shape, bs)]
+        # grid-aligned + halo padding by VOLUME-level reflection
+        volp = vol[np.ix_(*[
+            reflect_indices(-h, g_ * b + h, s)
+            for h, g_, b, s in zip(halo, gdims, bs, shape)])]
+        with stage("h2d-upload"):
+            vol_dev = torch.from_numpy(np.ascontiguousarray(volp)).to(device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        stage_bytes("h2d-upload", volp.nbytes)
+
+        params = ResidentParams(
+            outer_shape=tuple(outer_shape), halo=tuple(halo), is_u8=is_u8,
+            threshold=float(cfg.get("threshold", 0.25)),
+            sigma_seeds=float(cfg.get("sigma_seeds", 2.0)),
+            sigma_weights=float(cfg.get("sigma_weights", 2.0)),
+            alpha=float(cfg.get("alpha", 0.8)),
+            min_size=int(cfg.get("size_filter", 25) or 0), e_max=e_max,
+            rle_cap=rle_cap,
+            refine_rounds=int(cfg.get("refine_rounds", 3)),
+            pair_cap=int(cfg.get("pair_cap", 1 << 21)),
+            coarse_factor=int(cfg.get("coarse_factor", 2)))
+
+        ws_cache_key = (os.path.abspath(cfg["output_path"]),
+                        cfg["output_key"])
+
+        def _write(bb, arr):
+            t0 = time.perf_counter()
+            ds_out[bb] = arr
+            stage_add("store-write", time.perf_counter() - t0)
+            stage_bytes("store-write", arr.nbytes)
+
+        def _run(bid, p):
+            block = blocking.get_block(bid)
+            extent = [e - b for b, e in zip(block.begin, block.end)]
+            return _BlockResult(*resident_block(vol_dev, block.begin,
+                                                extent, p))
+
+        def submit(bid):
+            with stage("dispatch"):
+                return bid, _run(bid, params)
+
+        def _complete(bid, block, real, off, k_i, dense_np, uv_np,
+                      feats_np):
+            """Per-block host tail, safe to run from a pool worker: the
+            offset chain was already advanced by the (sequential) drain,
+            and blocks write disjoint chunk-aligned regions."""
+            local = dense_np[real]
+            local = local.astype("uint16" if k_i < 65536 else "uint32")
+            _fragment_cache_put(ws_cache_key + (bid,), local, off, block.bb)
+            out = local.astype("uint64")
+            out[out > 0] += off
+            _write(block.bb, out)
+            np.savez(_staged_path(tmp_folder, bid),
+                     uv=uv_np.astype("uint64") + off, feats=feats_np,
+                     k=np.int64(k_i), offset=np.uint64(off))
+            log_fn(f"processed block {bid}")
+
+        def _fetch_and_complete(bid, block, real, off, k_i, n_rle, rle_ok,
+                                res, uv_np, feats_np):
+            if rle_ok:
+                with stage("fetch-rle"):
+                    packed = res.packed.numpy()[:n_rle]
+                stage_bytes("fetch-rle", packed.nbytes)
+                with stage("host-decode"):
+                    dense_np = rle_decode_packed(
+                        packed, n_rle, n_inner).reshape(inner_shape)
+            else:
+                with stage("fetch-dense"):
+                    dense_np = res.dense_grid.cpu().numpy()
+                stage_bytes("fetch-dense", dense_np.nbytes)
+            _complete(bid, block, real, off, k_i, dense_np, uv_np,
+                      feats_np)
+
+        def drain(entry, retried: bool = False):
+            # one block span per drained block (the cap-retry redo stays
+            # inside the original block's span, under its cap-retry stage)
+            if retried or not telemetry.enabled():
+                return _drain_body(entry, retried)
+            with telemetry.span(f"block:{entry[0]}", cat="block",
+                                block=entry[0]) as sp:
+                out = _drain_body(entry, retried)
+                telemetry.annotate_memory(sp)
+                return out
+
+        def _drain_body(entry, retried: bool = False):
+            bid, res = entry
+            with stage("sync-execute"):
+                res.wait()
+            tbl = res.tbl.numpy()
+            stage_bytes("sync-execute", tbl.nbytes)
+            (k_i, n_r, e_over, cap_over, ws_ok, n_rle,
+             rle_ok) = (int(x) for x in tbl[0, :7])
+            if cap_over > 0 and not retried:
+                # pair compaction overflow (unusually dense fragment
+                # boundaries): redo this block once at the worst-case
+                # capacity, 3*n_inner valid pairs rounded up
+                worst = 1 << int(np.ceil(np.log2(3 * n_inner)))
+                with stage("cap-retry"):
+                    big = ResidentParams(**{**params.__dict__,
+                                            "pair_cap": worst})
+                    return _drain_body((bid, _run(bid, big)), retried=True)
+            if cap_over > 0:
+                raise RuntimeError(
+                    f"block {bid}: pair compaction overflow persists at "
+                    "the worst-case capacity — shrink blocks")
+            if e_over > 0:
+                raise RuntimeError(
+                    f"block {bid}: edge capacity exceeded "
+                    f"(e_max={e_max}) — raise e_max or shrink blocks")
+            block = blocking.get_block(bid)
+            real = tuple(slice(0, e - b) for b, e in zip(block.begin,
+                                                         block.end))
+            off = state["offset"]
+            if not ws_ok:
+                # watershed capacity overflow (pathological heights):
+                # always-correct per-block redo, kept on the main thread
+                with stage("host-fallback"):
+                    outer_sl = tuple(
+                        slice(b, b + o) for b, o in zip(block.begin,
+                                                        outer_shape))
+                    data = volp[outer_sl]
+                    dense_np, uv_np, feats_np, k_i = _host_block_fallback(
+                        data, cfg, halo, block, device=device)
+                max_ids[bid] = k_i
+                state["offset"] = off + np.uint64(k_i)
+                finisher.submit(_complete, bid, block, real, off, k_i,
+                                dense_np, uv_np, feats_np)
+                return
+            # uv + feats parse out of the already-fetched table; the
+            # offset chain advances HERE (sequentially), so the pooled
+            # tails are order-free and the pipelined drain stays
+            # bit-identical to the sequential one
+            uv_np = tbl[1:1 + n_r, :2].astype("int64")
+            feats_np = tbl[1:1 + n_r, 2:].astype("float64")
+            max_ids[bid] = k_i
+            state["offset"] = off + np.uint64(k_i)
+            finisher.submit(_fetch_and_complete, bid, block, real, off,
+                            k_i, n_rle, rle_ok, res, uv_np, feats_np)
+
+        block_ids = list(job_config["block_list"])
+        with writer_pool(cfg, ds_out) as finisher:
+            for _ in stream_window(block_ids, submit, drain,
+                                   window=int(cfg.get("stream_window", 3))):
+                pass
+
+
+class FusedFaceAssembly(BlockTask):
+    """Add the cross-block face edges (+ their feature samples) from thin
+    plane reads and save the COMPLETE per-block sub-graphs (reference
+    ownership rule: the pair (i, i+1) belongs to the block owning voxel i,
+    so each block contributes its UPPER faces)."""
+
+    task_name = "fused_face_assembly"
+
+    def __init__(self, input_path: str, input_key: str, ws_path: str,
+                 ws_key: str, problem_path: str, **kw):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.problem_path = problem_path
+        super().__init__(**kw)
+
+    def run_impl(self):
+        with file_reader(self.ws_path, "r") as f:
+            shape = list(f[self.ws_key].shape)
+        block_shape = self.global_block_shape()[-len(shape):]
+        block_list = self.blocks_in_volume(shape, block_shape)
+        self.run_jobs(block_list, {
+            "input_path": self.input_path, "input_key": self.input_key,
+            "ws_path": self.ws_path, "ws_key": self.ws_key,
+            "problem_path": self.problem_path,
+            "shape": shape, "block_shape": block_shape,
+            "fused_tmp": self.tmp_folder,
+        }, n_jobs=self.max_jobs)
+
+    @classmethod
+    def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
+        from ..core.runtime import stage
+        from ..ops.rag import segmented_stats, unique_pairs
+        from .watershed import _normalize_input
+
+        cfg = job_config["config"]
+        blocking = Blocking(cfg["shape"], cfg["block_shape"])
+        f_ws = file_reader(cfg["ws_path"], "r")
+        f_in = file_reader(cfg["input_path"], "r")
+        ds_ws = f_ws[cfg["ws_key"]]
+        ds_in = f_in[cfg["input_key"]]
+
+        def ws_plane(bb, owner_bid):
+            """Fragment plane, from the fused pass's in-RAM copy when this
+            process ran it, else from the store."""
+            ent = fragment_cache_get(
+                cfg["ws_path"], cfg["ws_key"], owner_bid,
+                expect_bb=blocking.get_block(owner_bid).bb)
+            if ent is not None:
+                local, off, obb = ent
+                rel = tuple(slice(s.start - o.start, s.stop - o.start)
+                            for s, o in zip(bb, obb))
+                out = local[rel].astype("uint64")
+                out[out > 0] += np.uint64(off)
+                return out.ravel()
+            with stage("store-read"):
+                return np.asarray(ds_ws[bb]).ravel()
+
+        def input_plane(bb):
+            """Boundary-map plane on the SAME scale the fused block read
+            used (one normalization policy for interior + face samples)."""
+            raw = raw_cache_get(cfg["input_path"], cfg["input_key"])
+            if raw is not None:
+                vol, is_u8 = raw
+                x = vol[bb].astype("float64")
+                return (x / 255.0 if is_u8 else x).ravel()
+            with stage("store-read"):
+                x = np.asarray(ds_in[bb])
+            sidecar = os.path.join(cfg["fused_tmp"],
+                                   "fused_input_scale.json")
+            if os.path.exists(sidecar):
+                # volume-level normalization recorded by the fused pass
+                with open(sidecar) as f:
+                    sc = json.load(f)
+                x = x.astype("float64") / float(sc["scale"])
+                if sc.get("invert"):
+                    x = 1.0 - x
+                return x.ravel()
+            if np.issubdtype(x.dtype, np.integer):
+                x = x.astype("float64") / float(np.iinfo(x.dtype).max)
+                if cfg.get("invert_inputs", False):
+                    x = 1.0 - x
+                return x.ravel()
+            return _normalize_input(x.astype("float32"),
+                                    cfg).astype("float64").ravel()
+
+        for bid in job_config["block_list"]:
+            with np.load(_staged_path(cfg["fused_tmp"], bid)) as d:
+                uv_int = d["uv"]
+                feats_int = d["feats"]
+                k = int(d["k"])
+                off = int(d["offset"])
+            block = blocking.get_block(bid)
+            face_u, face_v, face_x = [], [], []
+            extra_nodes = []  # +1-halo labels: the classic sub-graph node
+            #                   set includes them (reference reads the
+            #                   block with increaseRoi)
+            for axis in range(blocking.ndim):
+                nb = blocking.neighbor_id(bid, axis, +1)
+                if nb is None:
+                    continue
+                hi = block.end[axis]
+                bb_lo = tuple(
+                    slice(hi - 1, hi) if d_ == axis else s
+                    for d_, s in enumerate(block.bb))
+                bb_hi = tuple(
+                    slice(hi, hi + 1) if d_ == axis else s
+                    for d_, s in enumerate(block.bb))
+                la = ws_plane(bb_lo, bid)
+                lb = ws_plane(bb_hi, nb)
+                extra_nodes.append(np.unique(lb[lb > 0]))
+                xa = input_plane(bb_lo)
+                xb = input_plane(bb_hi)
+                fg = (la > 0) & (lb > 0) & (la != lb)
+                if not fg.any():
+                    continue
+                u = np.minimum(la[fg], lb[fg])
+                v = np.maximum(la[fg], lb[fg])
+                # two samples per face pair (nifty gridRag convention)
+                face_u.extend([u, u])
+                face_v.extend([v, v])
+                face_x.extend([xa[fg], xb[fg]])
+            if face_u:
+                fu = np.concatenate(face_u)
+                fv = np.concatenate(face_v)
+                fx = np.concatenate(face_x)
+                uniq, inv = unique_pairs(fu, fv)
+                feats_face = segmented_stats(inv, fx, len(uniq))
+                uv_all = np.concatenate([uv_int, uniq])
+                feats_all = np.concatenate([feats_int, feats_face])
+            else:
+                uv_all, feats_all = uv_int, feats_int
+            order = np.lexsort((uv_all[:, 1], uv_all[:, 0]))
+            uv_all, feats_all = uv_all[order], feats_all[order]
+            nodes = np.arange(off + 1, off + k + 1, dtype="uint64")
+            if extra_nodes:
+                nodes = np.unique(np.concatenate(
+                    [nodes] + [e.astype("uint64") for e in extra_nodes]))
+            g.save_sub_graph(cfg["problem_path"], 0, bid, nodes,
+                             uv_all.astype("uint64"))
+            np.savez(_staged_path(cfg["fused_tmp"], bid) + ".full.npz",
+                     uv=uv_all.astype("uint64"), feats=feats_all)
+            log_fn(f"processed block {bid}")
+
+
+class FeatureTablesToIds(BlockTask):
+    """Join the staged (uv, feats) tables with the global edge ids (after
+    MergeSubGraphs + MapEdgeIds) and write the per-block feature files in
+    the format MergeEdgeFeatures consumes."""
+
+    task_name = "fused_feature_ids"
+
+    def __init__(self, ws_path: str, ws_key: str, problem_path: str, **kw):
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.problem_path = problem_path
+        super().__init__(**kw)
+
+    def run_impl(self):
+        with file_reader(self.ws_path, "r") as f:
+            shape = list(f[self.ws_key].shape)
+        block_shape = self.global_block_shape()[-len(shape):]
+        block_list = self.blocks_in_volume(shape, block_shape)
+        self.run_jobs(block_list, {
+            "problem_path": self.problem_path,
+            "shape": shape, "block_shape": block_shape,
+            "fused_tmp": self.tmp_folder,
+        }, n_jobs=self.max_jobs)
+
+    @classmethod
+    def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
+        from .features import _block_feature_path
+
+        cfg = job_config["config"]
+        os.makedirs(os.path.dirname(
+            _block_feature_path(cfg["problem_path"], 0)), exist_ok=True)
+        for bid in job_config["block_list"]:
+            data = g.load_sub_graph(cfg["problem_path"], 0, bid)
+            with np.load(_staged_path(cfg["fused_tmp"], bid)
+                         + ".full.npz") as d:
+                uv = d["uv"]
+                feats = d["feats"]
+            local = g.find_edge_ids(data["edges"], uv)
+            out = np.zeros((len(data["edges"]), feats.shape[1] if
+                            len(feats) else 10), "float64")
+            out[local] = feats
+            np.savez(_block_feature_path(cfg["problem_path"], bid),
+                     edge_ids=data["edge_ids"].astype("int64"),
+                     features=out)
+            log_fn(f"processed block {bid}")
+
+
+class FusedProblemWorkflow(Task):
+    """Fused analog of WatershedWorkflow + ProblemWorkflow: fragments +
+    graph + features + costs from one device pass per block plus cheap
+    host assembly (the ``target='gpu'`` path of
+    MulticutSegmentationWorkflow)."""
+
+    def __init__(self, input_path: str, input_key: str, ws_path: str,
+                 ws_key: str, problem_path: str, tmp_folder: str,
+                 config_dir: str, max_jobs: int = 1, target: str = "gpu",
+                 compute_costs: bool = True,
+                 dependency: Optional[Task] = None):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.problem_path = problem_path
+        self.compute_costs = compute_costs
+        self.tmp_folder = tmp_folder
+        self.config_dir = config_dir
+        self.max_jobs = max_jobs
+        self.target = target
+        self.dependency = dependency
+        super().__init__()
+
+    def _common(self):
+        return dict(tmp_folder=self.tmp_folder, config_dir=self.config_dir,
+                    max_jobs=self.max_jobs, target=self.target)
+
+    def requires(self):
+        from .costs import EdgeCostsWorkflow
+        from .features import MergeEdgeFeatures
+        from .graph import MapEdgeIds, MergeSubGraphs
+
+        fused = FusedSegmentationBlocks(
+            input_path=self.input_path, input_key=self.input_key,
+            output_path=self.ws_path, output_key=self.ws_key,
+            problem_path=self.problem_path, dependency=self.dependency,
+            **self._common())
+        faces = FusedFaceAssembly(
+            input_path=self.input_path, input_key=self.input_key,
+            ws_path=self.ws_path, ws_key=self.ws_key,
+            problem_path=self.problem_path, dependency=fused,
+            **self._common())
+        merge = MergeSubGraphs(
+            graph_path=self.problem_path, scale=0,
+            merge_complete_graph=True, output_key="s0/graph",
+            input_path=self.ws_path, input_key=self.ws_key,
+            dependency=faces, **self._common())
+        mapped = MapEdgeIds(
+            graph_path=self.problem_path, scale=0, graph_key="s0/graph",
+            input_path=self.ws_path, input_key=self.ws_key,
+            dependency=merge, **self._common())
+        feat_ids = FeatureTablesToIds(
+            ws_path=self.ws_path, ws_key=self.ws_key,
+            problem_path=self.problem_path, dependency=mapped,
+            **self._common())
+        merged_feats = MergeEdgeFeatures(
+            graph_path=self.problem_path, graph_key="s0/graph",
+            output_path=self.problem_path, output_key="features",
+            dependency=feat_ids, **self._common())
+        if not self.compute_costs:
+            return merged_feats
+        return EdgeCostsWorkflow(
+            features_path=self.problem_path, features_key="features",
+            output_path=self.problem_path, output_key="s0/costs",
+            graph_path=self.problem_path, graph_key="s0/graph",
+            dependency=merged_feats, **self._common())
+
+    def output(self):
+        name = ("probs_to_costs.status" if self.compute_costs
+                else "merge_edge_features.status")
+        return FileTarget(os.path.join(self.tmp_folder, name))

@@ -1,0 +1,150 @@
+"""Import boundary and device default of the port.
+
+The port (``cluster_tools_tpu_torch``) and ``chip_smoke.py`` import torch
+and never jax or the JAX package; the card is the default device, and a
+run that asks for it on a host without one raises instead of carrying on
+on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "cluster_tools_tpu_torch")
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PKG):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, name), ROOT)
+                mod = rel[:-3].replace(os.sep, ".")
+                mods.append(mod[:-len(".__init__")]
+                            if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def _sources():
+    for mod in _port_modules():
+        path = os.path.join(ROOT, *mod.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") else \
+            os.path.join(path, "__init__.py")
+        yield path
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "cluster_tools_tpu", "flax"):
+                    bad.append((os.path.relpath(path, ROOT), name))
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, runpy, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"runpy.run_path({os.path.join(ROOT, 'chip_smoke.py')!r}, "
+        "run_name='chip_smoke_import')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'cluster_tools_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok", res.stdout
+
+
+def test_default_device_is_the_card_and_raises_without_one(tmp_path):
+    """The global config's device defaults to "cuda"; building the fused
+    workflow with it on this card-less host raises at DAG construction
+    (before any work runs), and the workflow's target defaults to "gpu"."""
+    import numpy as np
+    import torch
+
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.config import (ConfigDir,
+                                                     default_global_config)
+
+    assert default_global_config()["device"] == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a host without a CUDA device")
+    path = str(tmp_path / "d.n5")
+    with ctp.file_reader(path) as f:
+        f.require_dataset("bmap", shape=(8, 8, 8), chunks=(8, 8, 8),
+                          dtype="uint8")[:] = np.zeros((8, 8, 8), "uint8")
+    cfg = str(tmp_path / "cfg")
+    ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8]})
+    wf = ctp.MulticutSegmentationWorkflow(
+        input_path=path, input_key="bmap", ws_path=path, ws_key="ws",
+        problem_path=str(tmp_path / "p.n5"), output_path=path,
+        output_key="seg", tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
+    assert wf.target == "gpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctp.build([wf])
+    # nothing ran: no fragments were written, no task completed
+    with ctp.file_reader(path, "r") as f:
+        assert "ws" not in f
+    assert not os.path.exists(str(tmp_path / "tmp" /
+                                  "fused_segmentation.status"))
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"fused": False}, "ROADMAP A9"),
+])
+def test_unported_workflow_options_raise(tmp_path, kw, match):
+    import cluster_tools_tpu_torch as ctp
+
+    with pytest.raises(NotImplementedError, match=match):
+        ctp.MulticutSegmentationWorkflow(
+            input_path="a.n5", input_key="x", ws_path="a.n5", ws_key="w",
+            problem_path="p.n5", output_path="a.n5", output_key="s",
+            tmp_folder=str(tmp_path), config_dir=str(tmp_path), **kw)
+
+
+@pytest.mark.parametrize("task_cfg,match", [
+    ({"ws_method": "hybrid"}, "ROADMAP A7b"),
+    ({"ws_method": "legacy"}, "ROADMAP A7b"),
+    ({"mesh_resident": True}, "ROADMAP A14"),
+])
+def test_unported_fused_options_raise(tmp_path, task_cfg, match):
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+    from cluster_tools_tpu_torch.workflows.fused_pipeline import \
+        FusedSegmentationBlocks
+
+    cfg = str(tmp_path / "cfg")
+    ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8],
+                                        "device": "cpu"})
+    ConfigDir(cfg).write_task_config("fused_segmentation", task_cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        FusedSegmentationBlocks(
+            input_path="a.n5", input_key="x", output_path="a.n5",
+            output_key="w", problem_path="p.n5",
+            tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
+
+
+def test_mesh_target_raises(tmp_path):
+    from cluster_tools_tpu_torch.core.runtime import EXECUTORS
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        EXECUTORS["mesh"]()
