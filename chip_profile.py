@@ -10,7 +10,8 @@ the synthetic benchmark volume (seed 0) with its ``[4, 32, 32]`` halo,
 runs the whole per-block chain (``workflows/fused_pipeline.resident_block``,
 the default fused task config) a few times, prints the wall seconds of
 each run, then profiles one run with ``torch.profiler`` and prints the
-device time by operator and the min-plus kernel's share.  Needs a card;
+device time by operator, the min-plus kernel's share and the
+device-to-device copies' share.  Needs a card;
 exits non-zero without one.
 """
 
@@ -85,6 +86,9 @@ def main() -> int:
               f"x{count:<5d} {key[:90]}", flush=True)
     mp = sum(us for us, _, key in rows if "minplus" in key)
     print(f"minplus kernel ms {mp / 1e3} share {mp / total}", flush=True)
+    cp = sum(us for us, _, key in rows if "Memcpy DtoD" in key)
+    print(f"device-to-device copies ms {cp / 1e3} share {cp / total}",
+          flush=True)
     print(info, flush=True)
     return 0
 

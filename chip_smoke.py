@@ -7,14 +7,17 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
 sources, holds the min-plus EDT kernel against its plain PyTorch version
-at the shapes of the main path, runs the fused multicut chain on a small
-volume on the card and on the CPU and compares them, then drives the main
-path — ``MulticutSegmentationWorkflow(fused=True, target="gpu")`` on one
-CREMI-sample-sized synthetic volume, ``(125, 1250, 1250)`` uint8, blocks
-``[50, 512, 512]`` — and checks the segmentation against the generator's
-ground truth.  Every phase must pass; the last stdout line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+(in place along each axis of one outer block of the main path, the whole
+EDT of that block, per-slice, all-BIG and all-zero volumes, ragged shapes
+and other spacings) and times it there, runs the fused multicut chain on
+a small volume on the card and on the CPU and compares them, then drives
+the main path — ``MulticutSegmentationWorkflow(fused=True,
+target="gpu")`` on one CREMI-sample-sized synthetic volume,
+``(125, 1250, 1250)`` uint8, blocks ``[50, 512, 512]`` — and checks the
+segmentation against the generator's ground truth.  Every phase must
+pass; the last stdout line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA device, or outside a checkout of the repository, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -35,8 +38,7 @@ BLOCK = [50, 512, 512]
 #: the small card-vs-CPU volume
 SMALL_SHAPE = (64, 256, 256)
 SMALL_BLOCK = [32, 128, 128]
-#: H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM
-PEAK_FP32_OPS = 67e12
+#: H100 SXM HBM rate (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
 #: the repo's standing VOI gate (BASELINE.md "Measurement semantics")
 VOI_GATE = 0.01
@@ -109,52 +111,123 @@ def _scanlines(m: int, n: int, seed: int, device):
     return torch.where(u > 0.7, BIG, f).contiguous()
 
 
-def minplus_bound_ms(m: int, n: int) -> float:
-    """Least time of one min-plus product on the card: 2*m*n^2 fp32
-    operations (add, min) against the fp32 peak, or 8*m*n bytes against
-    HBM, whichever is larger."""
-    return max(2.0 * m * n * n / PEAK_FP32_OPS,
-               8.0 * m * n / PEAK_BYTES) * 1e3
+def bytes_bound_ms(nbytes: float) -> float:
+    """Least time the card takes to move ``nbytes`` through HBM: the
+    envelope's ~20 instructions per element are far below the bytes."""
+    return nbytes / PEAK_BYTES * 1e3
 
 
-def kernel_vs_plain(main_shapes, device="cuda"):
-    """The CUDA min-plus kernel against its plain PyTorch version on the
-    card.  Bitwise at unit spacing, rtol 1e-6 at anisotropic spacing;
-    timed (median of CUDA-event timings) at the main path's shapes."""
+def _compare(name: str, got, want, exact: bool = True) -> float:
+    """Bitwise where ``exact`` (integer squared distances: unit spacing,
+    or s^2 an integer), else rtol 1e-6; logs and returns the max abs
+    error."""
     import torch
 
-    from cluster_tools_tpu_torch.ops.edt import minplus_cuda, minplus_plain
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel != plain (max abs err "
+                                 f"{err})")
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    log("kernel-vs-plain " + json.dumps({
+        "name": name, "shape": list(got.shape), "exact": exact,
+        "bitwise": bool(torch.equal(got, want)), "max_abs_err": err}))
+    return err
 
-    rows = []
+
+def _plain_axis(x, axis: int):
+    """The plain version along ``axis``, over a transposed copy."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops.edt import minplus_plain
+
+    xm = torch.movedim(x, axis, -1).contiguous()
+    out = minplus_plain(xm.reshape(-1, xm.shape[-1]))
+    return torch.movedim(out.reshape(xm.shape), -1, axis)
+
+
+def block_mask(outer, device="cuda"):
+    """The fused chain's EDT mask of one outer block of the main path's
+    synthetic volume (seed 0, uint8, threshold 0.25)."""
+    import torch
+
+    from cluster_tools_tpu_torch.utils.synthetic import (as_uint8,
+                                                         synthetic_instance)
+
+    _, bnd = synthetic_instance(tuple(outer), seed=0)
+    u8 = torch.from_numpy(as_uint8(bnd)).to(device)
+    return u8.to(torch.float32) * (1.0 / 255.0) < 0.25
+
+
+def kernel_vs_plain(outer, device="cuda"):
+    """The CUDA min-plus kernel against its plain PyTorch version on the
+    card: bitwise at unit spacing, rtol 1e-6 at other spacings.  Timed
+    (median of CUDA-event timings) in place along each axis of one outer
+    block of the main path, on the inputs its EDT gives each axis, and as
+    the whole EDT of the block (three launches: the first reads the mask,
+    the last writes the sqrt)."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops import edt
+
+    timed = []
     max_err = 0.0
-    checks = [(name, m, n, 1.0, True) for name, (m, n) in main_shapes]
-    checks += [("ragged n=37", 1000, 37, 1.0, False),
-               ("ragged n=130", 777, 130, 1.0, False),
-               ("ragged m", 12345, 100, 1.0, False),
-               ("anisotropic s=0.7", 5000, 200, 0.7, False)]
-    for i, (name, m, n, s, timed) in enumerate(checks):
+    fg = block_mask(outer, device)
+    x = torch.where(fg, edt.BIG, 0.0).to(torch.float32)
+    for ax, name in enumerate("zyx"):
+        got = edt.minplus_axis_cuda(x, ax)
+        max_err = max(max_err, _compare(f"block {name} in place", got,
+                                        _plain_axis(x, ax)))
+        flat = torch.movedim(x, ax, -1).contiguous().reshape(-1, x.shape[ax])
+        row = {"name": name, "shape": list(x.shape), "axis": ax,
+               "ms": _time_ms(lambda: edt.minplus_axis_cuda(x, ax), reps=20),
+               "plain_ms": _time_ms(lambda: edt.minplus_plain(flat), reps=3,
+                                    warmup=1),
+               # f read once, out written once
+               "bound_ms": bytes_bound_ms(8.0 * x.numel())}
+        timed.append(row)
+        log(f"kernel-timed {json.dumps(row)}")
+        x = got
+    got = edt.distance_transform_edt(fg)
+    max_err = max(max_err, _compare(
+        "block EDT", got, edt.distance_transform_edt_plain(fg)))
+    # mask read (1 byte), two float32 intermediates written and read,
+    # the distances written
+    whole = {"name": "block EDT", "shape": list(fg.shape),
+             "ms": _time_ms(lambda: edt.distance_transform_edt(fg), reps=20),
+             "plain_ms": _time_ms(lambda: edt.distance_transform_edt_plain(
+                 fg), reps=3, warmup=1),
+             "bound_ms": bytes_bound_ms(21.0 * fg.numel())}
+    log(f"kernel-timed {json.dumps(whole)}")
+
+    checks = [("per-slice axes=(1,2)", fg, (1, 2), None, True),
+              ("all-BIG volume", torch.ones_like(fg), None, None, True),
+              ("all-zero volume", torch.zeros_like(fg), None, None, True),
+              ("ragged volume", torch.rand((7, 45, 33), device=device) > 0.3,
+               None, None, True),
+              ("anisotropic s=0.7", fg[:16], None, (0.7, 0.7, 0.7), False),
+              ("anisotropic (10,1,1)", fg[:16], None, (10.0, 1.0, 1.0),
+               True)]
+    for name, mask, axes, sampling, exact in checks:
+        got = edt.distance_transform_edt(mask, sampling=sampling, axes=axes)
+        want = edt.distance_transform_edt_plain(mask, sampling=sampling,
+                                                axes=axes)
+        max_err = max(max_err, _compare(name, got, want, exact))
+    for i, (name, m, n, s) in enumerate([("ragged n=37", 1000, 37, 1.0),
+                                         ("ragged n=130", 777, 130, 1.0),
+                                         ("ragged m", 12345, 100, 1.0),
+                                         ("rows s=0.7", 5000, 200, 0.7)]):
         f = _scanlines(m, n, seed=i, device=device)
-        got = minplus_cuda(f, s)
-        want = minplus_plain(f, s)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        max_err = max(max_err, err)
-        if s == 1.0:
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name} {m}x{n}: kernel != plain "
-                                     f"(max abs err {err})")
-        else:
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
-        row = {"name": name, "m": m, "n": n, "spacing": s,
-               "bitwise": bool(torch.equal(got, want)), "max_abs_err": err}
-        if timed:
-            row["ms"] = _time_ms(lambda: minplus_cuda(f, s), reps=20)
-            row["plain_ms"] = _time_ms(lambda: minplus_plain(f, s), reps=3,
-                                       warmup=1)
-            row["bound_ms"] = minplus_bound_ms(m, n)
-        rows.append(row)
-        log(f"kernel-vs-plain {json.dumps(row)}")
-    return rows, max_err
+        max_err = max(max_err, _compare(name, edt.minplus_cuda(f, s),
+                                        edt.minplus_plain(f, s), s == 1.0))
+    v = _scanlines(7 * 45, 33, seed=9, device=device).reshape(7, 45, 33)
+    for ax in range(3):
+        max_err = max(max_err, _compare(
+            f"ragged in place axis {ax}", edt.minplus_axis_cuda(v, ax),
+            _plain_axis(v, ax)))
+    return timed, max_err
 
 
 # ---------------------------------------------------------------------------
@@ -329,13 +402,9 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     log(f"build_s {build_all()}")
 
-    # the main path's min-plus shapes: the outer block (58, 576, 576) is
-    # one scanline set per axis, z then y then x
+    # the main path's EDT runs on the outer block (58, 576, 576)
     outer = [b + 2 * h for b, h in zip(BLOCK, (4, 32, 32))]
-    nz, ny, nx = outer
-    main_shapes = [("z", (ny * nx, nz)), ("y", (nz * nx, ny)),
-                   ("x", (nz * ny, nx))]
-    rows, max_err = kernel_vs_plain(main_shapes)
+    timed, max_err = kernel_vs_plain(outer)
 
     # scratch space inside the checkout (listed in .gitignore)
     root = os.path.join(repo, "_smoke_work")
@@ -347,7 +416,6 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    timed = [r for r in rows if "ms" in r]
     k = kernels.KERNELS["minplus"]
     line = {"kernels": [{
         "name": k.name, "route": k.route, "source": k.source,
@@ -357,7 +425,7 @@ def main() -> int:
         "ms": sum(r["ms"] for r in timed),
         "plain_ms": sum(r["plain_ms"] for r in timed),
         "bound_ms": sum(r["bound_ms"] for r in timed),
-        "bound_by": "operations", "library_ms": None}]}
+        "bound_by": "bytes", "library_ms": None}]}
     log(info)
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Import boundary and device default of the port.
 
-The port (``cluster_tools_tpu_torch``) and ``chip_smoke.py`` import torch
-and never jax or the JAX package; the card is the default device, and a
+The port (``cluster_tools_tpu_torch``) and its scripts for the card
+(``chip_smoke.py``, ``chip_profile.py``, ``chip_edt_compare.py``) import
+torch and never jax or the JAX package; the card is the default device, and a
 run that asks for it on a host without one raises instead of carrying on
 on the CPU."""
 
@@ -34,7 +35,8 @@ def _sources():
         path = path + ".py" if os.path.exists(path + ".py") else \
             os.path.join(path, "__init__.py")
         yield path
-    yield os.path.join(ROOT, "chip_smoke.py")
+    for script in ("chip_smoke.py", "chip_profile.py", "chip_edt_compare.py"):
+        yield os.path.join(ROOT, script)
 
 
 def test_no_source_imports_jax_or_the_jax_package():
