@@ -6,17 +6,30 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, holds the min-plus EDT kernel against its plain PyTorch version
-(in place along each axis of one outer block of the main path, the whole
-EDT of that block, per-slice, all-BIG and all-zero volumes, ragged shapes
-and other spacings) and times it there, runs the fused multicut chain on
-a small volume on the card and on the CPU and compares them, then drives
-the main path — ``MulticutSegmentationWorkflow(fused=True,
-target="gpu")`` on one CREMI-sample-sized synthetic volume,
-``(125, 1250, 1250)`` uint8, blocks ``[50, 512, 512]`` — and checks the
-segmentation against the generator's ground truth.  Every phase must
-pass; the last stdout line is ``{"ok": true, "device": {...}}``.  Without
-a CUDA device, or outside a checkout of the repository, it exits non-zero
+sources, then runs six phases, each of which must pass:
+
+1. the build;
+2. the min-plus EDT kernel against its plain PyTorch version (in place
+   along each axis of one outer block of the main path, the whole EDT of
+   that block, per-slice, all-BIG and all-zero volumes, ragged shapes and
+   other spacings), timed there;
+3. the fused multicut chain on a small volume on the card and on the CPU;
+4. the fused chain at full size — ``MulticutSegmentationWorkflow(
+   fused=True, target="gpu")`` on one CREMI-sample-sized synthetic volume,
+   ``(125, 1250, 1250)`` uint8, blocks ``[50, 512, 512]`` — checked against
+   the generator's ground truth, with the kernel's launches counted;
+5. the split chain (``WatershedWorkflow`` ->
+   ``MulticutSegmentationWorkflow(fused=False)``) on a small volume on the
+   card and on the CPU, in four watershed configurations (default,
+   ``two_pass``, ``pixel_pitch`` + ``apply_dt_2d``, ``pixel_pitch`` with a
+   mask);
+6. the split chain at full size on phase 4's volume, checked against the
+   ground truth, its fragments held to the same partition as phase 4's
+   fused fragments, and its kernel launches counted (3 per block, plus 3
+   per block the watershed redid after a capacity overflow).
+
+The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
 
@@ -243,15 +256,39 @@ def write_volume(path: str, data: np.ndarray, block) -> None:
         ds[:] = data
 
 
+def _build(wf, tmp: str, store: str, ws_key: str, seg_key: str,
+           device: str):
+    """Build ``wf`` timed; returns (wall s, fragments, segmentation,
+    status JSONs by task)."""
+    import torch
+
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctp.build([wf], raise_on_failure=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with file_reader(store, "r") as f:
+        ws, seg = f[ws_key][:], f[seg_key][:]
+    status = {}
+    for name in sorted(os.listdir(tmp)):
+        if name.endswith(".status"):
+            with open(os.path.join(tmp, name)) as fh:
+                st = json.load(fh)
+            status[st.get("task", name)] = st
+    return wall, ws, seg, status
+
+
 def run_workflow(workdir: str, store: str, block, device: str):
     """``MulticutSegmentationWorkflow(fused=True, target="gpu")`` with the
     default fused task config on ``device``; returns (wall s, fragments,
     segmentation, status JSONs by task)."""
-    import torch
-
     import cluster_tools_tpu_torch as ctp
     from cluster_tools_tpu_torch.core.config import ConfigDir
-    from cluster_tools_tpu_torch.core.storage import file_reader
 
     cfg_dir = os.path.join(workdir, "configs")
     ConfigDir(cfg_dir).write_global_config({"block_shape": list(block),
@@ -262,22 +299,39 @@ def run_workflow(workdir: str, store: str, block, device: str):
         problem_path=os.path.join(workdir, "problem.n5"), output_path=store,
         output_key="seg", tmp_folder=tmp, config_dir=cfg_dir,
         max_jobs=os.cpu_count() or 1, target="gpu", n_scales=1, fused=True)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ctp.build([wf], raise_on_failure=True)
-    if device == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with file_reader(store, "r") as f:
-        ws, seg = f["ws"][:], f["seg"][:]
-    status = {}
-    for name in sorted(os.listdir(tmp)):
-        if name.endswith(".status"):
-            with open(os.path.join(tmp, name)) as fh:
-                st = json.load(fh)
-            status[st.get("task", name)] = st
-    return wall, ws, seg, status
+    return _build(wf, tmp, store, "ws", "seg", device)
+
+
+def run_split_workflow(workdir: str, store: str, block, device: str,
+                       ws_cfg=None, two_pass: bool = False,
+                       mask_key: str = ""):
+    """The split chain, ``WatershedWorkflow`` ->
+    ``MulticutSegmentationWorkflow(fused=False, target="gpu")``, with the
+    watershed task config ``ws_cfg`` (default config if None) on
+    ``device``, writing ``ws_split`` / ``seg_split`` into ``store``;
+    returns (wall s, fragments, segmentation, status JSONs by task)."""
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+
+    cfg_dir = os.path.join(workdir, "configs_split")
+    ConfigDir(cfg_dir).write_global_config({"block_shape": list(block),
+                                            "device": device})
+    for name in ("watershed", "watershed_pass1", "watershed_pass2"):
+        ConfigDir(cfg_dir).write_task_config(name, ws_cfg or {})
+    tmp = os.path.join(workdir, "tmp_split")
+    common = dict(tmp_folder=tmp, config_dir=cfg_dir,
+                  max_jobs=os.cpu_count() or 1, target="gpu")
+    ws = ctp.WatershedWorkflow(
+        input_path=store, input_key="bmap", output_path=store,
+        output_key="ws_split", two_pass=two_pass,
+        mask_path=store if mask_key else "", mask_key=mask_key, **common)
+    wf = ctp.MulticutSegmentationWorkflow(
+        input_path=store, input_key="bmap", ws_path=store,
+        ws_key="ws_split",
+        problem_path=os.path.join(workdir, "problem_split.n5"),
+        output_path=store, output_key="seg_split", n_scales=1, fused=False,
+        dependency=ws, **common)
+    return _build(wf, tmp, store, "ws_split", "seg_split", device)
 
 
 def scores(seg: np.ndarray, gt: np.ndarray):
@@ -323,8 +377,143 @@ def card_vs_cpu(root: str, shape, block):
     return v_ws, v_seg
 
 
+#: phase 5's watershed configurations: (name, task config, two_pass, mask)
+SPLIT_CONFIGS = [
+    ("default", {}, False, False),
+    ("two_pass", {}, True, False),
+    ("pixel_pitch+apply_dt_2d", {"pixel_pitch": [2, 1, 1],
+                                 "apply_dt_2d": True}, False, False),
+    ("pixel_pitch+mask", {"pixel_pitch": [2, 1, 1]}, False, True),
+]
+
+
+def split_card_vs_cpu(root: str, shape, block):
+    """The split chain on the card and on the CPU on one small volume, in
+    each of SPLIT_CONFIGS: fragments and segmentations within the VOI
+    gate."""
+    from cluster_tools_tpu_torch.core.storage import file_reader
+    from cluster_tools_tpu_torch.utils.synthetic import (as_uint8,
+                                                         synthetic_instance)
+
+    _, bnd = synthetic_instance(shape, seed=1)
+    data = as_uint8(bnd)
+    mask = np.ones(shape, "uint8")
+    mask[:, :, :shape[2] // 5] = 0
+    mask[shape[0] // 2:, shape[1] // 2:, shape[2] // 2:] = 0
+    results = {}
+    for name, ws_cfg, two_pass, masked in SPLIT_CONFIGS:
+        out = {}
+        for device in ("cuda", "cpu"):
+            wd = os.path.join(root, f"split_{name}_{device}")
+            store = os.path.join(wd, "data.n5")
+            write_volume(store, data, block)
+            if masked:
+                with file_reader(store) as f:
+                    f.require_dataset("mask", shape=shape, chunks=block,
+                                      dtype="uint8")[:] = mask
+            wall, ws, seg, _ = run_split_workflow(
+                wd, store, block, device, ws_cfg, two_pass,
+                mask_key="mask" if masked else "")
+            out[device] = (ws, seg)
+            log(f"split-small {name} {device}: shape {list(shape)} "
+                f"wall_s {wall}")
+        v_ws = voi(out["cuda"][0], out["cpu"][0])
+        v_seg = voi(out["cuda"][1], out["cpu"][1])
+        identical = bool(np.array_equal(out["cuda"][0], out["cpu"][0]))
+        log(f"split-small {name} card-vs-cpu VOI: fragments {v_ws} "
+            f"segmentation {v_seg} identical_fragments {identical} "
+            f"(gate {VOI_GATE})")
+        if masked and out["cuda"][0][mask == 0].any():
+            raise AssertionError(f"split-small {name}: fragments in the "
+                                 "masked-out region")
+        if not (v_ws <= VOI_GATE and v_seg <= VOI_GATE):
+            raise AssertionError(f"split-small {name}: card and CPU "
+                                 "chains disagree beyond the gate")
+        results[name] = (v_ws, v_seg)
+    return results
+
+
+def same_partition(store: str, key_a: str, key_b: str) -> bool:
+    """True when two fragment volumes of ``store`` describe the same
+    partition: the voxelwise id maps a -> b and b -> a are both functions
+    (checked in z-slabs)."""
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    with file_reader(store, "r") as f:
+        da, db = f[key_a], f[key_b]
+        n = da.shape[0]
+        slabs = [(z, min(z + 25, n)) for z in range(0, n, 25)]
+        max_a = max_b = 0
+        for z0, z1 in slabs:
+            max_a = max(max_a, int(da[z0:z1].max()))
+            max_b = max(max_b, int(db[z0:z1].max()))
+        ab = np.full(max_a + 1, -1, "int64")
+        ba = np.full(max_b + 1, -1, "int64")
+        for z0, z1 in slabs:
+            a = da[z0:z1].ravel().astype("int64")
+            b = db[z0:z1].ravel().astype("int64")
+            for lut, x, y in ((ab, a, b), (ba, b, a)):
+                new = lut[x] < 0
+                lut[x[new]] = y[new]
+                if (lut[x] != y).any():
+                    return False
+    return True
+
+
+def split_path(root: str, shape, block, gt):
+    """The split chain at full block width on phase 4's volume (its store
+    still on disk); returns the run's record."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+
+    wd = os.path.join(root, "main")
+    store = os.path.join(wd, "data.n5")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    wall, ws, seg, status = run_split_workflow(wd, store, block, "cuda")
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_blocks = Blocking(list(shape), list(block)).n_blocks
+    nvox = int(np.prod(shape))
+    log(f"split-path wall_s {wall} voxels_per_s {nvox / wall} "
+        f"n_blocks {n_blocks} peak_device_bytes {peak}")
+    for task, st in status.items():
+        log(f"split-path task {task} wall_s {st.get('wall_time')} "
+            f"stages {json.dumps(st.get('stages', {}))} "
+            f"stage_counts {json.dumps(st.get('stage_counts', {}))}")
+    sc = scores(seg, gt)
+    n_frag = int(ws.max())
+    log(f"split-path quality {json.dumps(sc)} n_fragments {n_frag} "
+        f"n_segments {len(np.unique(seg))}")
+    del ws, seg
+    if not np.isfinite(list(sc.values())).all() or \
+            sc["cremi"] > CREMI_GATE:
+        raise AssertionError(f"split segmentation quality out of bounds: "
+                             f"{sc}")
+    t0 = time.perf_counter()
+    same = same_partition(store, "ws_split", "ws")
+    log(f"split-path fragments same partition as fused: {same} "
+        f"(check_s {time.perf_counter() - t0})")
+    if not same:
+        raise AssertionError("split and fused fragments are not the same "
+                             "partition")
+    redo = status.get("watershed", {}).get("stage_counts", {}).get(
+        "device-ws-redo", 0)
+    edt_calls = launches["minplus"]
+    log(f"split-path minplus launches {edt_calls} blocks {n_blocks} "
+        f"ws-redo {redo}")
+    if edt_calls != 3 * n_blocks + 3 * redo:
+        raise AssertionError(f"min-plus kernel launched {edt_calls} times "
+                             f"for {n_blocks} blocks and {redo} redos")
+    return {"wall_s": wall, "launches": launches, "n_blocks": n_blocks,
+            "peak_device_bytes": peak, "quality": sc}
+
+
 def main_path(root: str, shape, block):
-    """The main path at full block width; returns the run's record."""
+    """The main path at full block width; returns the run's record and
+    the ground truth."""
     import torch
 
     from cluster_tools_tpu_torch import kernels
@@ -372,7 +561,7 @@ def main_path(root: str, shape, block):
         raise AssertionError(f"min-plus kernel launched {edt_calls} times "
                              f"for {n_blocks} blocks")
     return {"wall_s": wall, "launches": launches, "n_blocks": n_blocks,
-            "peak_device_bytes": peak, "quality": sc}
+            "peak_device_bytes": peak, "quality": sc}, gt
 
 
 def main() -> int:
@@ -412,14 +601,18 @@ def main() -> int:
     os.makedirs(root)
     try:
         card_vs_cpu(root, SMALL_SHAPE, SMALL_BLOCK)
-        record = main_path(root, FULL_SHAPE, BLOCK)
+        record, gt = main_path(root, FULL_SHAPE, BLOCK)
+        split_card_vs_cpu(root, SMALL_SHAPE, SMALL_BLOCK)
+        split = split_path(root, FULL_SHAPE, BLOCK, gt)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     k = kernels.KERNELS["minplus"]
     line = {"kernels": [{
         "name": k.name, "route": k.route, "source": k.source,
-        "replaces": k.replaces, "launches": record["launches"][k.name],
+        "replaces": k.replaces,
+        # the main paths' runs: the fused chain and the split chain
+        "launches": record["launches"][k.name] + split["launches"][k.name],
         "max_abs_err": max_err,
         # one EDT of the main path: the three axis products of a block
         "ms": sum(r["ms"] for r in timed),

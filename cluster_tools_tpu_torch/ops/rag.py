@@ -1,19 +1,24 @@
 """Region-adjacency-graph primitives: boundary pairs and edge statistics.
 
-Port of the pieces of cluster_tools_tpu/ops/rag.py that the fused chain runs
-(the replacement for ``nifty.distributed.computeMergeableRegionGraph`` and
-the ndist feature extraction, reference graph/initial_sub_graphs.py:114-118,
+Port of the pieces of cluster_tools_tpu/ops/rag.py that the fused and the
+split chains run (the replacement for
+``nifty.distributed.computeMergeableRegionGraph`` and the ndist feature
+extraction, reference graph/initial_sub_graphs.py:114-118,
 features/block_edge_features.py:113-141):
 
-* device side: :func:`boundary_pair_values_dual` /
-  :func:`boundary_pair_values` (every axis-neighbor pair with a validity
-  mask), :func:`compact_valid`, and the per-edge statistics — exact
-  256-bin histograms over packed keys for uint8 inputs
+* device side: :func:`label_pairs` (every differing axis-neighbor pair
+  with a validity mask), :func:`boundary_pair_values_dual` /
+  :func:`boundary_pair_values` (the same pairs with boundary samples),
+  :func:`affinity_pair_values` (offset-channel samples),
+  :func:`compact_valid`, and the per-edge statistics — exact 256-bin
+  histograms over packed keys for uint8 inputs
   (:func:`edge_stats_hist_packed`) and the sorted-position path for float
-  inputs (:func:`edge_stats_device`);
-* host side (numpy): :func:`host_boundary_edge_features`,
-  :func:`unique_pairs`, :func:`segmented_stats`,
-  :func:`merge_feature_blocks`.
+  inputs (:func:`edge_stats_device`), with the split chain's
+  submit/finalize pair around the latter
+  (:func:`device_edge_stats_submit`, :func:`device_edge_stats_finalize`);
+* host side (numpy): :func:`densify_labels`, :func:`host_label_pairs`,
+  :func:`host_boundary_edge_features`, :func:`unique_pairs`,
+  :func:`segmented_stats`, :func:`merge_feature_blocks`.
 
 Face ownership: the pair between voxel ``i`` and ``i+1`` along an axis
 belongs to the block that owns voxel ``i``.
@@ -40,12 +45,113 @@ _QS = (0.1, 0.25, 0.5, 0.75, 0.9)
 _BIG = 2 ** 31 - 1
 
 
+def densify_labels(labels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Map arbitrary (uint64) labels to dense int32 ids for the device.
+    Returns ``(lut, dense)`` with ``lut[dense] == labels`` and
+    ``lut[0] == 0``, so the ignore-label-0 convention survives."""
+    uniq, inv = np.unique(labels, return_inverse=True)
+    inv = inv.reshape(labels.shape)
+    if len(uniq) == 0 or uniq[0] != 0:
+        uniq = np.concatenate([np.zeros(1, dtype=uniq.dtype), uniq])
+        inv = inv + 1
+    if len(uniq) >= 2 ** 31:  # one block can never hold this many labels
+        raise ValueError("more than 2**31 distinct labels in one block")
+    return uniq.astype("uint64"), inv.astype("int32")
+
+
 def _axis_slices(ndim: int, axis: int, lo_size: int):
     lo = [slice(None)] * ndim
     hi = [slice(None)] * ndim
     lo[axis] = slice(0, lo_size)
     hi[axis] = slice(1, lo_size + 1)
     return tuple(lo), tuple(hi)
+
+
+def _inner_ownership(valid: torch.Tensor, a_shape, axis: int, size: int,
+                     inner) -> torch.Tensor:
+    """Restrict ``valid`` to faces whose first voxel lies in the inner
+    block, on every axis."""
+    ndim = len(a_shape)
+    for ax2 in range(ndim):
+        lim = inner[ax2] if ax2 != axis else min(inner[ax2], size)
+        if a_shape[ax2] > lim:
+            shape = [1] * ndim
+            shape[ax2] = a_shape[ax2]
+            idx = torch.arange(a_shape[ax2], device=valid.device) < lim
+            valid = valid & idx.reshape(shape)
+    return valid
+
+
+def label_pairs(labels: torch.Tensor, ignore_label: bool = True,
+                inner_shape: Optional[Tuple[int, ...]] = None):
+    """All differing axis-neighbor label pairs of the block.  ``labels`` is
+    the block with a +1 halo on its upper faces; ``inner_shape`` restricts
+    ownership to faces whose first voxel lies in the inner block.  Returns
+    flat ``(u, v, valid)`` with u < v on valid entries and zeros
+    elsewhere."""
+    ndim = labels.dim()
+    us, vs, ok = [], [], []
+    inner = inner_shape or tuple(labels.shape)
+    for axis in range(ndim):
+        size = labels.shape[axis] - 1
+        if size <= 0:
+            continue
+        lo_sl, hi_sl = _axis_slices(ndim, axis, size)
+        a, b = labels[lo_sl], labels[hi_sl]
+        valid = a != b
+        if ignore_label:
+            valid &= (a != 0) & (b != 0)
+        m = _inner_ownership(valid, a.shape, axis, size, inner).reshape(-1)
+        us.append(torch.where(m, torch.minimum(a, b).reshape(-1), 0))
+        vs.append(torch.where(m, torch.maximum(a, b).reshape(-1), 0))
+        ok.append(m)
+    return torch.cat(us), torch.cat(vs), torch.cat(ok)
+
+
+def affinity_pair_values(labels: torch.Tensor, affs: torch.Tensor,
+                         offsets: Sequence[Sequence[int]],
+                         ignore_label: bool = True,
+                         inner_begin: Optional[Tuple[int, ...]] = None,
+                         inner_shape: Optional[Tuple[int, ...]] = None):
+    """Pairs + affinity samples for (long-range) offset channels: channel c
+    of ``affs`` holds the affinity between anchor voxel i and voxel
+    i + offsets[c].  One sample per differing in-bounds pair whose ANCHOR
+    lies in the inner window ``[inner_begin, inner_begin + inner_shape)``
+    of the two-sided-haloed block (reference: ndist
+    extractBlockFeaturesFromAffinityMaps).  Returns flat
+    ``(u, v, value, valid)``."""
+    ndim = labels.dim()
+    inner = inner_shape or tuple(labels.shape)
+    begin = inner_begin or (0,) * ndim
+    us, vs, vals, ok = [], [], [], []
+    for c, off in enumerate(offsets):
+        sl_a, sl_b = [], []
+        for o, s in zip(off, labels.shape):
+            if o >= 0:
+                sl_a.append(slice(0, s - o))
+                sl_b.append(slice(o, s))
+            else:
+                sl_a.append(slice(-o, s))
+                sl_b.append(slice(0, s + o))
+        a = labels[tuple(sl_a)]
+        b = labels[tuple(sl_b)]
+        fv = affs[c][tuple(sl_a)]
+        valid = a != b
+        if ignore_label:
+            valid &= (a != 0) & (b != 0)
+        for ax2 in range(ndim):
+            pos = torch.arange(a.shape[ax2], device=labels.device) \
+                + sl_a[ax2].start
+            owned = (pos >= begin[ax2]) & (pos < begin[ax2] + inner[ax2])
+            shape = [1] * ndim
+            shape[ax2] = a.shape[ax2]
+            valid = valid & owned.reshape(shape)
+        m = valid.reshape(-1)
+        us.append(torch.where(m, torch.minimum(a, b).reshape(-1), 0))
+        vs.append(torch.where(m, torch.maximum(a, b).reshape(-1), 0))
+        vals.append(fv.reshape(-1))
+        ok.append(m)
+    return torch.cat(us), torch.cat(vs), torch.cat(vals), torch.cat(ok)
 
 
 def boundary_pair_values_dual(labels: torch.Tensor, bmap: torch.Tensor,
@@ -67,14 +173,7 @@ def boundary_pair_values_dual(labels: torch.Tensor, bmap: torch.Tensor,
         valid = a != b
         if ignore_label:
             valid &= (a != 0) & (b != 0)
-        for ax2 in range(ndim):
-            lim = inner[ax2] if ax2 != axis else min(inner[ax2], size)
-            if a.shape[ax2] > lim:
-                shape = [1] * ndim
-                shape[ax2] = a.shape[ax2]
-                idx = torch.arange(a.shape[ax2], device=labels.device) < lim
-                valid &= idx.reshape(shape)
-        m = valid.reshape(-1)
+        m = _inner_ownership(valid, a.shape, axis, size, inner).reshape(-1)
         us.append(torch.where(m, torch.minimum(a, b).reshape(-1), 0))
         vs.append(torch.where(m, torch.maximum(a, b).reshape(-1), 0))
         va.append(fa.reshape(-1))
@@ -295,6 +394,92 @@ def edge_stats_device(u: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the split chain's submit/finalize pair over the sorted-position statistics
+# ---------------------------------------------------------------------------
+
+
+def _pad_pow2(arr: torch.Tensor, n_pad: int, fill=0) -> torch.Tensor:
+    n = int(arr.shape[0])
+    if n == n_pad:
+        return arr
+    return torch.cat([arr, arr.new_full((n_pad - n,), fill)])
+
+
+def _should_compact(n: int, compact: Optional[bool]) -> bool:
+    import os
+
+    if compact is not None:
+        return compact
+    return n >= (1 << 20) and os.environ.get("CTT_RAG_COMPACT", "1") != "0"
+
+
+def device_edge_stats_submit(u, v, values, ok, e_max: int = 65536,
+                             compact: Optional[bool] = None):
+    """The per-edge statistics of one block's samples, left on the device
+    (pass the result to :func:`device_edge_stats_finalize`).  Inputs are
+    padded to the next power of two (at least 16) as in the JAX package;
+    padded arrays of 2^20 samples or more are first compacted to their
+    valid entries into ``n_pad // 4`` slots (at least 2^14) — an overflow
+    raises at finalize; ``compact=False`` or ``CTT_RAG_COMPACT=0`` turns
+    the compaction off."""
+    return device_edge_stats_submit_multi(u, v, ok, [values], e_max=e_max,
+                                          compact=compact)[0]
+
+
+def device_edge_stats_submit_multi(u, v, ok, values_list,
+                                   e_max: int = 65536,
+                                   compact: Optional[bool] = None):
+    """:func:`device_edge_stats_submit` for several value channels sharing
+    one ``(u, v, ok)`` layout: padding and compaction targets are shared."""
+    n = int(u.shape[0])
+    n_pad = 1 << max(int(np.ceil(np.log2(max(n, 1)))), 4)
+    u = _pad_pow2(u, n_pad)
+    v = _pad_pow2(v, n_pad)
+    ok = _pad_pow2(ok, n_pad, fill=False)
+    if _should_compact(n_pad, compact):
+        cap = max(n_pad // 4, 1 << 14)
+        compacted, cok, overflow = compact_valid(
+            ok, [u, v] + [_pad_pow2(x, n_pad) for x in values_list], cap)
+        cu, cv = compacted[0], compacted[1]
+        return [("compact", edge_stats_device(cu, cv, cx, cok, e_max=e_max),
+                 overflow, cap) for cx in compacted[2:]]
+    return [("full", edge_stats_device(u, v, _pad_pow2(x, n_pad), ok,
+                                       e_max=e_max))
+            for x in values_list]
+
+
+def device_edge_stats_finalize(handles, e_max: int = 65536):
+    """Synchronize one submitted block and return its host tables
+    ``(uv int64 [E, 2] dense labels, features float64 [E, 10])``; raises
+    when the compaction or the edge capacity ``e_max`` overflowed."""
+    if handles[0] == "compact":
+        _, inner, cap_overflow, cap = handles
+        if int(cap_overflow) > 0:
+            raise RuntimeError(
+                f"boundary samples exceeded the compaction capacity {cap} "
+                "(boundary fraction > 25%); pass compact=False or set "
+                "CTT_RAG_COMPACT=0 for this volume")
+        handles = ("full", inner)
+    uv, feats, n_runs, overflow = handles[1]
+    if int(overflow) > 0:
+        raise RuntimeError(
+            f"block has more than e_max={e_max} distinct edges; "
+            "increase e_max or use smaller blocks")
+    n = int(n_runs)
+    return (uv[:n].cpu().numpy().astype("int64"),
+            feats[:n].cpu().numpy().astype("float64"))
+
+
+def device_unique_edges(u, v, ok, e_max: int = 65536) -> np.ndarray:
+    """The block's unique ``(u, v)`` edge table, deduplicated on the
+    device (the statistics' sort, with zero values), synchronously."""
+    zeros = torch.zeros_like(u, dtype=torch.float32)
+    uv, _ = device_edge_stats_finalize(
+        device_edge_stats_submit(u, v, zeros, ok, e_max=e_max), e_max)
+    return uv
+
+
+# ---------------------------------------------------------------------------
 # host-side pair extraction and statistics (numpy)
 # ---------------------------------------------------------------------------
 
@@ -324,6 +509,21 @@ def _host_axis_pairs(labels: np.ndarray, ignore_label: bool,
                 valid[tuple(sl)] = False
         out.append((a, b, valid, tuple(lo)))
     return out
+
+
+def host_label_pairs(labels: np.ndarray, ignore_label: bool = True,
+                     inner_shape=None) -> np.ndarray:
+    """Numpy analog of :func:`label_pairs` + dedup: the block's sorted
+    unique ``(u, v)`` edge table."""
+    pairs = []
+    for a, b, valid, _ in _host_axis_pairs(labels, ignore_label,
+                                           inner_shape):
+        av, bv = a[valid], b[valid]
+        pairs.append(np.stack([np.minimum(av, bv), np.maximum(av, bv)],
+                              axis=1))
+    if not pairs:
+        return np.zeros((0, 2), "uint64")
+    return np.unique(np.concatenate(pairs), axis=0)
 
 
 def host_boundary_edge_features(labels: np.ndarray, bmap: np.ndarray,

@@ -13,7 +13,8 @@ utils/volume_utils.py:123-139):
 * :func:`coarse` (``_coarse_impl``): the same solve on a ``factor``-times
   coarser grid, upsampled and refined with steepest-descent sweeps.
 * :func:`dense_relabel`, :func:`extent_valid_mask`, :func:`seeded_watershed`
-  and :func:`size_filter` (the host fallback's watershed).
+  (masked or not) and :func:`size_filter` (the split chain's per-block
+  watershed and the fused chain's host fallback).
 
 Tie-breaking is lexicographic on (height, linear index), so given the same
 height and seeds the labels equal the JAX package's exactly.  Where JAX
@@ -307,11 +308,13 @@ def coarse(height: torch.Tensor, seeds: torch.Tensor, min_size: int,
 
 
 def size_filter(labels: np.ndarray, height: torch.Tensor,
-                size_threshold: int) -> np.ndarray:
+                size_threshold: int,
+                mask: Optional[torch.Tensor] = None) -> np.ndarray:
     """Remove fragments smaller than ``size_threshold`` and regrow the
-    remaining seeds over the height map (reference:
+    remaining seeds over the height map within ``mask`` (a boolean tensor
+    on the height map's device; reference:
     utils/volume_utils.py:123-139 watershed-and-size-filter).  Host-side
-    counting + one device watershed pass."""
+    counting + one watershed pass on the height map's device."""
     labels = np.asarray(labels)
     flat = labels.ravel()
     uniques, inverse, counts = np.unique(flat, return_inverse=True,
@@ -326,7 +329,7 @@ def size_filter(labels: np.ndarray, height: torch.Tensor,
     seed_ids = np.searchsorted(nz, keep).astype("int32") + 1
     seed_ids[keep == 0] = 0
     out = seeded_watershed(height, torch.from_numpy(seed_ids).to(
-        height.device)).cpu().numpy()
+        height.device), mask).cpu().numpy()
     restored = np.zeros(out.shape, dtype=labels.dtype)
     fg = out > 0
     restored[fg] = nz[out[fg] - 1]

@@ -1,10 +1,14 @@
-"""Distributed edge-feature accumulation: the merge task of the fused
-chain.
+"""Distributed edge-feature accumulation.
 
-Re-specification of the reference's ``features/`` merge step
-(merge_edge_features.py ndist.mergeFeatureBlocks): the per-block feature
-tables that ``FeatureTablesToIds`` writes are merged into the global edge
-table with count-weighted moments (ops/rag.py merge_feature_blocks).
+Port of cluster_tools_tpu/workflows/features.py (reference ``features/``
+package): per-block edge statistics from boundary or affinity maps
+(:class:`BlockEdgeFeatures`, the split chain; reference
+block_edge_features.py:113-141) — the samples at label faces are taken and
+reduced per edge on the device (ops/rag.py), only the compact per-edge
+tables come back — then the count-weighted merge of the per-block tables
+into the global edge table (:class:`MergeEdgeFeatures`,
+merge_edge_features.py ndist.mergeFeatureBlocks), which the fused chain's
+``FeatureTablesToIds`` tables feed as well.
 
 Feature columns (ops/rag.py FEATURE_NAMES):
     [mean, variance, min, q10, q25, q50, q75, q90, max, count]
@@ -16,19 +20,211 @@ the reference's features[:, 0] / features[:, -1] convention
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from ..core import graph as g
-from ..core.runtime import BlockTask
+from ..core.blocking import Blocking
+from ..core.device import task_device
+from ..core.runtime import BlockTask, prefetch_iter, stage, stream_window
 from ..core.storage import file_reader
+from ..core.workflow import FileTarget, Task
 
 _BLOCK_FEAT_DIR = "block_features"
 
 
 def _block_feature_path(features_path: str, block_id: int) -> str:
     return os.path.join(features_path, _BLOCK_FEAT_DIR, f"block_{block_id}.npz")
+
+
+class BlockEdgeFeatures(BlockTask):
+    """Per-block accumulation (reference: BlockEdgeFeatures).  Boundary maps
+    (3d input) sample both face voxels per edge; affinity maps (4d input,
+    ``offsets``) sample the offset channel at the anchor.  Integer maps
+    are probabilities scaled by the dtype's maximum.  ``impl: "host"``
+    runs the numpy analog for boundary maps.  The filter-bank features
+    (``filters``/``sigmas``) are not ported yet (ROADMAP A13)."""
+
+    task_name = "block_edge_features"
+
+    @staticmethod
+    def default_task_config():
+        conf = BlockTask.default_task_config()
+        conf.update({"e_max": 65536, "filters": None, "sigmas": None})
+        return conf
+
+    def __init__(self, input_path: str, input_key: str, labels_path: str,
+                 labels_key: str, graph_path: str, output_path: str,
+                 offsets: Optional[List[List[int]]] = None,
+                 graph_key: str = "graph", **kw):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.labels_path = labels_path
+        self.labels_key = labels_key
+        self.graph_path = graph_path
+        self.graph_key = graph_key
+        self.output_path = output_path
+        self.offsets = offsets
+        super().__init__(**kw)
+        self.device = task_device(self.global_config)
+        if self.task_config.get("filters") or self.task_config.get("sigmas"):
+            raise NotImplementedError(
+                "filter-bank edge features (filters/sigmas) are not ported "
+                "yet (ROADMAP A13)")
+
+    def run_impl(self):
+        with file_reader(self.labels_path, "r") as f:
+            shape = list(f[self.labels_key].shape)
+        block_shape = self.global_block_shape()
+        block_list = self.blocks_in_volume(shape, block_shape)
+        os.makedirs(os.path.join(self.output_path, _BLOCK_FEAT_DIR),
+                    exist_ok=True)
+        self.run_jobs(block_list, {
+            "input_path": self.input_path, "input_key": self.input_key,
+            "labels_path": self.labels_path, "labels_key": self.labels_key,
+            "graph_path": self.graph_path, "graph_key": self.graph_key,
+            "output_path": self.output_path, "offsets": self.offsets,
+            "shape": shape, "block_shape": block_shape,
+            "device": self.device,
+        }, n_jobs=self.max_jobs)
+
+    @classmethod
+    def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
+        import torch
+
+        from ..core.device import resolve_device
+        from ..ops.rag import (N_FEATURES, affinity_pair_values,
+                               boundary_pair_values, densify_labels,
+                               device_edge_stats_finalize,
+                               device_edge_stats_submit,
+                               host_boundary_edge_features)
+
+        cfg = job_config["config"]
+        blocking = Blocking(cfg["shape"], cfg["block_shape"])
+        offsets = cfg.get("offsets")
+        host_impl = cfg.get("impl") == "host"
+        if host_impl and offsets is not None:
+            raise ValueError("impl='host' supports plain boundary features "
+                             "only")
+        device = None if host_impl else resolve_device(cfg["device"])
+        ds_in = file_reader(cfg["input_path"], "r")[cfg["input_key"]]
+        ds_lab = file_reader(cfg["labels_path"], "r")[cfg["labels_key"]]
+        # integer inputs are quantized probabilities scaled by the dtype's
+        # full range (uint8 -> /255, uint16 -> /65535, ...)
+        if np.issubdtype(ds_in.dtype, np.signedinteger):
+            raise ValueError(
+                f"signed integer probability maps are not supported "
+                f"(got {ds_in.dtype})")
+        scale = (float(np.iinfo(ds_in.dtype).max)
+                 if np.issubdtype(ds_in.dtype, np.integer) else 1.0)
+        global_edges = None
+        if offsets is not None:
+            # affinity anchors are owned per voxel, so an anchor's edge may
+            # live in a neighboring block's sub-graph: samples map straight
+            # to GLOBAL edge ids (graph loaded once per job)
+            _, global_edges, _ = g.load_graph(cfg["graph_path"],
+                                              cfg.get("graph_key", "graph"))
+        e_max = int(cfg.get("e_max", 65536))
+
+        def load(block_id: int):
+            """Host IO only (runs on the prefetch threads): geometry, label
+            and map reads, sub-graph load."""
+            block = blocking.get_block(block_id)
+            if offsets is None:
+                begin = list(block.begin)
+                end = [min(e + 1, s) for e, s in zip(block.end, cfg["shape"])]
+            else:
+                # two-sided halo covering the longest offset (negative
+                # offsets reach backwards from anchors in the inner block)
+                reach = np.abs(np.asarray(offsets)).max(axis=0)
+                begin = [max(b - int(r), 0)
+                         for b, r in zip(block.begin, reach)]
+                end = [min(e + int(r), s)
+                       for e, r, s in zip(block.end, reach, cfg["shape"])]
+            bb = tuple(slice(b, e) for b, e in zip(begin, end))
+            data = g.load_sub_graph(cfg["graph_path"], 0, block_id)
+            if len(data["edges"]) == 0 and offsets is None:
+                # empty sub-graph: no read needed (affinity mode still
+                # proceeds — the block may own seam anchors)
+                return block_id, None, None, None, None, data
+            with stage("store-read"):
+                labels = np.asarray(ds_lab[bb])
+                if offsets is None:
+                    raw = np.asarray(ds_in[bb])
+                else:
+                    raw = np.asarray(ds_in[(slice(0, len(offsets)),) + bb])
+            return block_id, block, begin, labels, raw, data
+
+        def submit(entry):
+            block_id, block, begin, labels, raw, data = entry
+            if block is None:
+                return block_id, None, None, None
+            if host_impl:
+                uv, feats = host_boundary_edge_features(
+                    labels, raw.astype("float32") / scale,
+                    inner_shape=tuple(block.shape))
+                return block_id, None, data, (uv, feats)
+            with stage("host-densify"):
+                lut, dense = densify_labels(labels)
+                vals = raw.astype("float32") / scale
+            with stage("dispatch"):
+                dense_dev = torch.from_numpy(dense).to(device)
+                vals_dev = torch.from_numpy(vals).to(device)
+                if offsets is None:
+                    u, v, val, ok = boundary_pair_values(
+                        dense_dev, vals_dev, inner_shape=tuple(block.shape))
+                else:
+                    u, v, val, ok = affinity_pair_values(
+                        dense_dev, vals_dev, offsets,
+                        inner_begin=tuple(b - bo for b, bo in
+                                          zip(block.begin, begin)),
+                        inner_shape=tuple(block.shape))
+                # per-edge reduction on the device: only the compact (uv,
+                # stats) tables come back
+                handles = device_edge_stats_submit(u, v, val, ok,
+                                                   e_max=e_max)
+            return block_id, lut, data, handles
+
+        def drain(entry):
+            block_id, lut, data, handles = entry
+            if data is None:
+                np.savez(_block_feature_path(cfg["output_path"], block_id),
+                         edge_ids=np.zeros(0, "int64"),
+                         features=np.zeros((0, N_FEATURES), "float64"))
+                log_fn(f"processed block {block_id}")
+                return
+            if lut is None:
+                uv, edge_feats = handles
+            else:
+                with stage("sync-execute"):
+                    uv_dense, edge_feats = device_edge_stats_finalize(
+                        handles, e_max)
+                uv = np.stack([lut[uv_dense[:, 0]], lut[uv_dense[:, 1]]],
+                              axis=1)
+            if offsets is None:
+                # boundary faces share the RAG's ownership rule, so every
+                # edge maps into the block's own sub-graph
+                local_ids = g.find_edge_ids(data["edges"], uv)
+                feats = np.zeros((len(data["edges"]), N_FEATURES),
+                                 "float64")
+                feats[local_ids] = edge_feats
+                out_ids = data["edge_ids"]
+            else:
+                # global mapping; long-range pairs that are not RAG edges
+                # anywhere are dropped
+                gids = g.find_edge_ids(global_edges, uv, strict=False)
+                keep = gids >= 0
+                out_ids, feats = gids[keep], edge_feats[keep]
+            with stage("store-write"):
+                np.savez(_block_feature_path(cfg["output_path"], block_id),
+                         edge_ids=out_ids.astype("int64"), features=feats)
+            log_fn(f"processed block {block_id}")
+
+        for _ in stream_window(prefetch_iter(job_config["block_list"], load),
+                               submit, drain,
+                               window=int(cfg.get("stream_window", 3))):
+            pass
 
 
 class MergeEdgeFeatures(BlockTask):
@@ -102,3 +298,42 @@ class MergeEdgeFeatures(BlockTask):
             merged = merge_feature_blocks(partials[e0], e1 - e0, n_feats)
             ds[slice(e0, e1), slice(0, n_feats)] = merged
             log_fn(f"processed block {e0}")
+
+
+class EdgeFeaturesWorkflow(Task):
+    """BlockEdgeFeatures -> MergeEdgeFeatures (reference:
+    features_workflow.py:33-59)."""
+
+    def __init__(self, input_path: str, input_key: str, labels_path: str,
+                 labels_key: str, graph_path: str, output_path: str,
+                 tmp_folder: str, config_dir: str, max_jobs: int = 1,
+                 target: str = "gpu", output_key: str = "features",
+                 offsets: Optional[List[List[int]]] = None,
+                 graph_key: str = "graph",
+                 dependency: Optional[Task] = None):
+        self.kw = dict(tmp_folder=tmp_folder, config_dir=config_dir,
+                       max_jobs=max_jobs, target=target)
+        self.args = dict(input_path=input_path, input_key=input_key,
+                         labels_path=labels_path, labels_key=labels_key,
+                         graph_path=graph_path, output_path=output_path)
+        self.output_key = output_key
+        self.offsets = offsets
+        self.graph_key = graph_key
+        self.tmp_folder = tmp_folder
+        self.dependency = dependency
+        super().__init__()
+
+    def requires(self):
+        t1 = BlockEdgeFeatures(offsets=self.offsets,
+                               graph_key=self.graph_key,
+                               dependency=self.dependency,
+                               **self.args, **self.kw)
+        return MergeEdgeFeatures(
+            graph_path=self.args["graph_path"],
+            output_path=self.args["output_path"],
+            output_key=self.output_key, graph_key=self.graph_key,
+            dependency=t1, **self.kw)
+
+    def output(self):
+        return FileTarget(os.path.join(self.tmp_folder,
+                                       "merge_edge_features.status"))

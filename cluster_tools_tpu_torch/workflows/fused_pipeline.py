@@ -46,22 +46,10 @@ import torch
 from ..core import graph as g
 from ..core.blocking import Blocking
 from ..core.config import write_config
+from ..core.device import resolve_device, task_device
 from ..core.runtime import BlockTask
 from ..core.storage import file_reader
 from ..core.workflow import FileTarget, Task
-
-
-def resolve_device(name: str) -> torch.device:
-    """The torch device a device task runs on.  Asking for a card that is
-    not there raises: the caller asked for the card, not for the CPU."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r} requested but no CUDA device is available; "
-            "set the global config's \"device\" to \"cpu\" to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {name!r}")
-    return dev
 
 
 def _staged_path(tmp_folder: str, block_id: int) -> str:
@@ -275,7 +263,7 @@ class _BlockResult:
 # ---------------------------------------------------------------------------
 
 
-def _host_block_fallback(data, cfg, halo, block, device="cpu"):
+def _host_block_fallback(data, cfg, halo, block, device="cuda"):
     """Always-correct per-block redo (watershed capacity overflow on
     pathological heights): the full-resolution basins watershed with
     exact-capacity retry + numpy edge features, returning (dense
@@ -316,8 +304,7 @@ class FusedSegmentationBlocks(BlockTask):
         super().__init__(**kw)
         # the card unless the global config asks for the CPU; no card
         # raises here, at DAG construction, before any work starts
-        self.device = str(resolve_device(self.global_config.get("device",
-                                                                "cuda")))
+        self.device = task_device(self.global_config)
         method = self.task_config.get("ws_method", "device")
         if method != "device":
             raise NotImplementedError(

@@ -1,11 +1,14 @@
-"""Top-level segmentation pipeline (reference: cluster_tools/workflows.py).
+"""Top-level segmentation pipelines (reference: cluster_tools/workflows.py).
 
-Port of ``MulticutSegmentationWorkflow`` with ``fused=True``: the fused
-problem assembly (fragments + graph + features + costs from one device
-pass per block, workflows/fused_pipeline.py) chained with the
-hierarchical multicut and the final write (reference workflows.py:204-233).
-``fused=False`` (the split watershed + ProblemWorkflow chain) is not
-ported yet and raises.
+Port of cluster_tools_tpu/workflows/segmentation.py: ``ProblemWorkflow``
+assembles the multicut problem container from existing fragments (graph +
+features + costs, reference workflows.py:29-108), and
+``MulticutSegmentationWorkflow`` chains a problem with the hierarchical
+multicut and the final write (reference workflows.py:204-233) — the split
+chain (``fused=False``, the default: fragments from an upstream
+``WatershedWorkflow``) or the fused chain (``fused=True``: fragments,
+graph and features from one device pass per block,
+workflows/fused_pipeline.py).
 """
 
 from __future__ import annotations
@@ -14,18 +17,83 @@ import os
 from typing import List, Optional
 
 from ..core.workflow import FileTarget, Task
+from .costs import EdgeCostsWorkflow
+from .features import EdgeFeaturesWorkflow
+from .graph import GraphWorkflow
 from .multicut import MulticutWorkflow
 from .write import WriteAssignments
+
+
+class ProblemWorkflow(Task):
+    """graph -> edge features -> costs into one problem container
+    (reference: ProblemWorkflow, workflows.py:29-108).  ``offsets`` makes
+    the features affinity-map features; ``compute_costs=False`` stops
+    after the merged features."""
+
+    def __init__(self, input_path: str, input_key: str, ws_path: str,
+                 ws_key: str, problem_path: str, tmp_folder: str,
+                 config_dir: str, max_jobs: int = 1, target: str = "gpu",
+                 n_scales_graph: int = 1,
+                 offsets: Optional[List[List[int]]] = None,
+                 compute_costs: bool = True,
+                 dependency: Optional[Task] = None):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.problem_path = problem_path
+        self.n_scales_graph = n_scales_graph
+        self.offsets = offsets
+        self.compute_costs = compute_costs
+        self.tmp_folder = tmp_folder
+        self.config_dir = config_dir
+        self.max_jobs = max_jobs
+        self.target = target
+        self.dependency = dependency
+        super().__init__()
+
+    def _common(self):
+        return dict(tmp_folder=self.tmp_folder, config_dir=self.config_dir,
+                    max_jobs=self.max_jobs, target=self.target)
+
+    def requires(self):
+        graph_wf = GraphWorkflow(
+            input_path=self.ws_path, input_key=self.ws_key,
+            graph_path=self.problem_path, output_key="s0/graph",
+            n_scales=self.n_scales_graph, dependency=self.dependency,
+            **self._common())
+        feat_wf = EdgeFeaturesWorkflow(
+            input_path=self.input_path, input_key=self.input_key,
+            labels_path=self.ws_path, labels_key=self.ws_key,
+            graph_path=self.problem_path, graph_key="s0/graph",
+            output_path=self.problem_path,
+            output_key="features", offsets=self.offsets, dependency=graph_wf,
+            **self._common())
+        if not self.compute_costs:
+            return feat_wf
+        return EdgeCostsWorkflow(
+            features_path=self.problem_path, features_key="features",
+            output_path=self.problem_path, output_key="s0/costs",
+            graph_path=self.problem_path, graph_key="s0/graph",
+            dependency=feat_wf, **self._common())
+
+    def output(self):
+        name = ("probs_to_costs.status" if self.compute_costs
+                else "merge_edge_features.status")
+        return FileTarget(os.path.join(self.tmp_folder, name))
 
 
 class MulticutSegmentationWorkflow(Task):
     """Problem -> hierarchical multicut -> write segmentation
     (reference: MulticutSegmentationWorkflow, workflows.py:204-233).
 
-    ``fused=True`` computes the watershed fragments INSIDE the problem
-    assembly, so ``ws_path/ws_key`` are outputs.  ``target`` is ``"gpu"``
-    for the card (the JAX package's ``"tpu"``), or ``inline`` / ``local``
-    / ``threads``; the device itself is the global config's ``"device"``."""
+    With ``fused=False`` (the default) ``ws_path/ws_key`` are the watershed
+    fragments: chain a ``WatershedWorkflow`` upstream through
+    ``dependency``.  ``fused=True`` computes the fragments INSIDE the
+    problem assembly, so ``ws_path/ws_key`` are outputs; it takes boundary
+    maps only.  ``target`` is ``"gpu"`` for the card (the JAX package's
+    ``"tpu"``), or ``inline`` / ``local`` / ``threads``; the device itself
+    is the global config's ``"device"``."""
 
     def __init__(self, input_path: str, input_key: str, ws_path: str,
                  ws_key: str, problem_path: str, output_path: str,
@@ -33,13 +101,9 @@ class MulticutSegmentationWorkflow(Task):
                  max_jobs: int = 1, target: str = "gpu",
                  n_scales: int = 1,
                  offsets: Optional[List[List[int]]] = None,
-                 fused: bool = True,
+                 fused: bool = False,
                  dependency: Optional[Task] = None):
-        if not fused:
-            raise NotImplementedError(
-                "fused=False (the split watershed + problem chain) is not "
-                "ported yet (ROADMAP A9)")
-        if offsets is not None:
+        if fused and offsets is not None:
             raise ValueError("fused=True supports boundary maps only "
                              "(affinity offsets need the split chain)")
         self.input_path = input_path
@@ -50,6 +114,7 @@ class MulticutSegmentationWorkflow(Task):
         self.output_path = output_path
         self.output_key = output_key
         self.n_scales = n_scales
+        self.offsets = offsets
         self.fused = fused
         self.tmp_folder = tmp_folder
         self.config_dir = config_dir
@@ -63,15 +128,22 @@ class MulticutSegmentationWorkflow(Task):
                     max_jobs=self.max_jobs, target=self.target)
 
     def requires(self):
-        from .fused_pipeline import FusedProblemWorkflow
-
         assignment_path = os.path.join(self.tmp_folder,
                                        "multicut_assignments.npy")
-        problem = FusedProblemWorkflow(
-            input_path=self.input_path, input_key=self.input_key,
-            ws_path=self.ws_path, ws_key=self.ws_key,
-            problem_path=self.problem_path,
-            dependency=self.dependency, **self._common())
+        if self.fused:
+            from .fused_pipeline import FusedProblemWorkflow
+
+            problem = FusedProblemWorkflow(
+                input_path=self.input_path, input_key=self.input_key,
+                ws_path=self.ws_path, ws_key=self.ws_key,
+                problem_path=self.problem_path,
+                dependency=self.dependency, **self._common())
+        else:
+            problem = ProblemWorkflow(
+                input_path=self.input_path, input_key=self.input_key,
+                ws_path=self.ws_path, ws_key=self.ws_key,
+                problem_path=self.problem_path, offsets=self.offsets,
+                dependency=self.dependency, **self._common())
         multicut = MulticutWorkflow(
             problem_path=self.problem_path, assignment_path=assignment_path,
             n_scales=self.n_scales, dependency=problem, **self._common())

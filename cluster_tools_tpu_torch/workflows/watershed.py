@@ -1,21 +1,45 @@
-"""Blockwise distance-transform watershed: the pieces the fused chain uses.
+"""Blockwise distance-transform watershed.
 
-Port of the helpers of cluster_tools_tpu/workflows/watershed.py that the
-fused task calls (reference watershed/watershed.py): the input
-normalization policy (:func:`_normalize_input`, :func:`as_normalized_float`),
-volume-level reflection (:func:`reflect_indices`) and the per-block
-watershed pipeline :func:`run_ws_block` on its ``ws_algorithm="basins"``
-path, which the fused task's host fallback runs for a block whose coarse
-solve overflowed its capacities.
+Port of cluster_tools_tpu/workflows/watershed.py (reference
+``watershed/`` package, watershed/watershed.py): per block (with halo) —
+read the boundary map, threshold + Euclidean distance transform (the CUDA
+lower-envelope kernel on the card, ops/edt.py), seeds from smoothed-DT
+maxima, seeded watershed on a height map mixing boundary evidence and the
+inverted DT, size filter, per-block label offset, write the inner block.
+:class:`WatershedWorkflow` chains the relabel to consecutive ids, and with
+``two_pass=True`` runs the checkerboard variant whose second pass
+continues the first pass's labels as seeds.
+
+Every device step runs on the global config's ``"device"`` (default
+``"cuda"``); the host keeps the reads, the id compaction's bookkeeping and
+the writes.  The plain 3-d path streams the job's blocks through
+:func:`iter_ws_blocks_stream`; masks, ``pixel_pitch``, ``apply_dt_2d`` and
+the seeded second pass run :func:`run_ws_block` /
+:func:`run_ws_block_seeded` per block.
+
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A9b):
+``apply_ws_2d``, ``non_maximum_suppression``, ``ws_algorithm="flood"``,
+``impl="host"``, ``agglomeration=True`` and ``WatershedFromSeedsTask``;
+``target="mesh"`` raises naming A14.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..core.blocking import Blocking
+from ..core.device import task_device
+from ..core.runtime import BlockTask
+from ..core.storage import file_reader
+from ..core.workflow import FileTarget, Task
+from .relabel import RelabelWorkflow
+
+#: task-config options of the JAX package's watershed that are not ported
+_UNPORTED = ("apply_ws_2d", "non_maximum_suppression")
 
 
 def _normalize_input(data: np.ndarray, cfg) -> np.ndarray:
@@ -41,6 +65,21 @@ def as_normalized_float(block: np.ndarray) -> np.ndarray:
     return np.asarray(block)
 
 
+def _channel_slice(ds, cfg):
+    cb = cfg.get("channel_begin", 0)
+    ce = cfg.get("channel_end", None)
+    return slice(cb, ds.shape[0] if ce is None else ce)
+
+
+def _read_input(ds, bb, cfg) -> np.ndarray:
+    """Read + normalize boundary evidence (clipped bounding-box variant)."""
+    if ds.ndim == len(bb) + 1:
+        data = ds[(_channel_slice(ds, cfg),) + bb].astype("float32")
+    else:
+        data = ds[bb].astype("float32")
+    return _normalize_input(data, cfg)
+
+
 def reflect_indices(start: int, stop: int, n: int) -> np.ndarray:
     """Volume-level reflection indices for ``range(start, stop)`` over an
     axis of length n: out-of-volume positions fold back as the mirror of
@@ -54,6 +93,69 @@ def reflect_indices(start: int, stop: int, n: int) -> np.ndarray:
     return np.where(j < n, j, period - j)
 
 
+def read_outer_reflect(ds, begin, block_shape, halo) -> np.ndarray:
+    """Read ``[begin-halo, begin+block_shape+halo)`` with out-of-volume
+    parts filled by volume-level reflection (see reflect_indices)."""
+    shape = ds.shape[-len(begin):]
+    ridx = [reflect_indices(b - h, b + bs + h, n)
+            for b, h, bs, n in zip(begin, halo, block_shape, shape)]
+    los = [int(r.min()) for r in ridx]
+    his = [int(r.max()) + 1 for r in ridx]
+    data = np.asarray(ds[tuple(slice(lo, hi) for lo, hi in zip(los, his))])
+    if all(len(r) == hi - lo and (np.diff(r) == 1).all()
+           for r, lo, hi in zip(ridx, los, his)):
+        return data  # interior block: contiguous read, no gather
+    return data[np.ix_(*[r - lo for r, lo in zip(ridx, los)])]
+
+
+def load_with_halo(ds, offset: Sequence[int], block_shape: Sequence[int],
+                   halo: Sequence[int], padding_mode: str = "reflect",
+                   channel_slice: Optional[slice] = None) -> np.ndarray:
+    """Read ``[offset-halo, offset+block_shape+halo)`` with out-of-volume
+    parts padded by ``np.pad(mode=padding_mode)`` (the JAX package's
+    ``workflows/inference.py`` loader; reference
+    inference/inference.py:202-232 ``_load_input``).  Always returns the
+    full outer shape."""
+    shape = ds.shape[-len(offset):]
+    starts = [off - ha for off, ha in zip(offset, halo)]
+    stops = [off + bs + ha for off, bs, ha in zip(offset, block_shape, halo)]
+    pad_left = tuple(max(0, -s) for s in starts)
+    pad_right = tuple(max(0, stop - sh) for stop, sh in zip(stops, shape))
+    bb = tuple(slice(max(0, s), min(sh, stop))
+               for s, stop, sh in zip(starts, stops, shape))
+    if channel_slice is not None:
+        bb = (channel_slice,) + bb
+        pad_left = (0,) + pad_left
+        pad_right = (0,) + pad_right
+    data = ds[bb]
+    if any(pad_left) or any(pad_right):
+        data = np.pad(data, tuple(zip(pad_left, pad_right)), mode=padding_mode)
+    return data
+
+
+def _read_padded_input(ds, block, cfg, halo, raw: bool = False) -> np.ndarray:
+    """Read the block at the uniform outer shape (reflect-padded at volume
+    borders), same normalization policy as _read_input.  ``raw=True`` skips
+    the host-side float conversion for 3d uint8 stores — the streamed
+    device pipeline normalizes on the device, so only a quarter of the
+    bytes cross to the card."""
+    if ds.ndim == len(block.begin) + 1:
+        data = load_with_halo(
+            ds, block.begin, cfg["block_shape"], halo,
+            channel_slice=_channel_slice(ds, cfg)).astype("float32")
+    else:
+        data = read_outer_reflect(ds, block.begin, cfg["block_shape"], halo)
+        # the device pipeline always multiplies uint8 by 1/255, so the raw
+        # path is only taken when that matches _normalize_input's
+        # data-dependent rule (max > 1); degenerate {0,1} blocks go
+        # through the host rule
+        if raw and data.dtype == np.uint8 and data.max() > 1 \
+                and not cfg.get("invert_inputs", False):
+            return data
+        data = data.astype("float32")
+    return _normalize_input(data, cfg)
+
+
 def _ws_algorithm(cfg) -> str:
     """The watershed ALGORITHM ('coarse'/'basins'/'flood') from the task
     config or the CTT_WS_METHOD env; distinct from the fused task's
@@ -64,43 +166,574 @@ def _ws_algorithm(cfg) -> str:
     return m if m in ("coarse", "basins", "flood") else "coarse"
 
 
-def run_ws_block(data: np.ndarray, cfg: Dict[str, Any],
-                 device="cpu") -> np.ndarray:
-    """The per-block watershed pipeline (reference: _ws_block
-    watershed.py:285-341) on ``device``, ``ws_algorithm="basins"``: EDT,
-    height map, seeds from smoothed-DT maxima, basin-merging watershed,
-    size filter.  Returns uint64 labels."""
+def _check_ported(cfg) -> None:
+    for key in _UNPORTED:
+        if cfg.get(key):
+            raise NotImplementedError(
+                f"{key} is not ported yet (ROADMAP A9b)")
+    if _ws_algorithm(cfg) == "flood":
+        raise NotImplementedError(
+            "ws_algorithm='flood' is not ported yet (ROADMAP A9b)")
+    if cfg.get("impl") == "host":
+        raise NotImplementedError(
+            "impl='host' (the host C++ flood) is not ported yet "
+            "(ROADMAP A9b)")
+
+
+def _as_device(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _height_map(x: torch.Tensor, dt: torch.Tensor, alpha: float,
+                sigma_weights: float) -> torch.Tensor:
+    """Boundary evidence blended with the inverted DT (reference
+    fit_to_hmap/_make_hmap, utils/volume_utils.py:294-391)."""
+    from ..ops.filters import gaussian
+
+    hmap = gaussian(x, sigma_weights) if sigma_weights else x
+    dmax = torch.clamp(dt.max(), min=1e-6)
+    return alpha * hmap + (1.0 - alpha) * (1.0 - dt / dmax)
+
+
+def _run_ws_block_tensor(data: np.ndarray, cfg: Dict[str, Any],
+                         mask: Optional[np.ndarray], device
+                         ) -> torch.Tensor:
+    """:func:`run_ws_block` up to its labels as an int32 tensor (the
+    size-filtered labels come back from the host as int64)."""
     from ..ops.components import connected_components
     from ..ops.edt import distance_transform_edt
     from ..ops.filters import gaussian, local_maxima
-    from ..ops.watershed import seeded_watershed, size_filter
+    from ..ops.watershed import coarse, seeded_watershed, size_filter
 
-    if _ws_algorithm(cfg) != "basins":
-        raise NotImplementedError(
-            "run_ws_block is ported for ws_algorithm='basins' only "
-            "(ROADMAP A9)")
-    for key in ("apply_dt_2d", "apply_ws_2d", "non_maximum_suppression"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} is not ported yet (ROADMAP A9)")
+    _check_ported(cfg)
     threshold = cfg.get("threshold", 0.25)
     sigma_seeds = cfg.get("sigma_seeds", 2.0)
-    sigma_weights = cfg.get("sigma_weights", 2.0)
     min_size = cfg.get("size_filter", 25)
-    alpha = cfg.get("alpha", 0.8)
     pixel_pitch = cfg.get("pixel_pitch")
 
-    x = torch.from_numpy(np.ascontiguousarray(data)).to(device)
+    x = _as_device(data, device)
+    tmask = None if mask is None else _as_device(mask.astype(bool), device)
+    # distance to boundaries (vigra distanceTransform equivalent)
     fg = x < threshold
-    dt = distance_transform_edt(
-        fg, sampling=tuple(pixel_pitch) if pixel_pitch else None)
-    hmap = gaussian(x, sigma_weights) if sigma_weights else x
-    dmax = torch.clamp(dt.max(), min=1e-6)
-    height = alpha * hmap + (1.0 - alpha) * (1.0 - dt / dmax)
+    if tmask is not None:
+        fg = fg & tmask
+    if cfg.get("apply_dt_2d", False):
+        # per-slice 2d EDT: the slices fold into the kernel's scanlines
+        dt = distance_transform_edt(fg, axes=(1, 2))
+    else:
+        dt = distance_transform_edt(
+            fg, sampling=tuple(pixel_pitch) if pixel_pitch else None)
+    height = _height_map(x, dt, cfg.get("alpha", 0.8),
+                         cfg.get("sigma_weights", 2.0))
+    # seeds: connected maxima clusters of the smoothed DT
     dt_smooth = gaussian(dt, sigma_seeds) if sigma_seeds else dt
     maxima = local_maxima(dt_smooth, radius=2) & fg
-    seeds = connected_components(maxima, connectivity=x.dim(),
+    seeds = connected_components(maxima, connectivity=data.ndim,
                                  method="propagation")
-    ws = seeded_watershed(height, seeds, None, connectivity=1).cpu().numpy()
-    if min_size:
-        ws = size_filter(ws, height, min_size)
-    return ws.astype("uint64")
+    if _ws_algorithm(cfg) == "coarse" and tmask is None and data.ndim == 3:
+        # the watershed core shared with the fused chain (identical
+        # composition -> identical fragment partitions); the size filter
+        # is integrated in the coarse solve
+        labels, ok = coarse(height, seeds, min_size or 0,
+                            int(cfg.get("refine_rounds", 3)),
+                            int(cfg.get("coarse_factor", 2)))
+        if bool(ok):
+            return labels
+    ws = seeded_watershed(height, seeds, tmask, connectivity=1)
+    if not min_size:
+        return ws
+    return torch.from_numpy(size_filter(ws.cpu().numpy(), height, min_size,
+                                        mask=tmask).astype("int64"))
+
+
+def run_ws_block(data: np.ndarray, cfg: Dict[str, Any],
+                 mask: Optional[np.ndarray] = None,
+                 device="cuda") -> np.ndarray:
+    """The per-block watershed pipeline (reference: _ws_block
+    watershed.py:285-341) on ``device``: EDT (``pixel_pitch`` as its
+    sampling, or per slice with ``apply_dt_2d``), height map, seeds from
+    smoothed-DT maxima, the coarse watershed (``ws_algorithm="coarse"``,
+    the default, unmasked 3d; it falls back to basins when its capacities
+    overflow) or the basin-merging watershed (masks, ``"basins"``), size
+    filter.  Returns uint64 labels."""
+    return _run_ws_block_tensor(data, cfg, mask, device).cpu().numpy() \
+        .astype("uint64")
+
+
+def _ws_pipeline_3d(x: torch.Tensor, threshold: float, sigma_seeds: float,
+                    sigma_weights: float, alpha: float, min_size: int = 0,
+                    return_height: bool = False, ws_method: str = "basins",
+                    refine_rounds: int = 3, coarse_factor: int = 2):
+    """The streamed 3d pipeline on one outer block, on ``x``'s device.
+    With ``min_size`` the size filter is fused in (coarse: integrated in
+    the solve; basins: small fragments stripped and re-merged).  Returns
+    ``(labels, ok)``, or ``(labels, height, ok)`` with ``return_height``
+    for a host size filter downstream; ``ok`` is false when the
+    watershed's capacities overflowed."""
+    from ..ops.components import connected_components
+    from ..ops.edt import distance_transform_edt
+    from ..ops.filters import gaussian, local_maxima
+    from ..ops.watershed import basins, coarse
+
+    if x.dtype == torch.uint8:
+        # device-side normalization of quantized boundary maps (a multiply
+        # by the float32 reciprocal, not the host's division)
+        x = x.to(torch.float32) * (1.0 / 255.0)
+    fg = x < threshold
+    dt = distance_transform_edt(fg)
+    height = _height_map(x, dt, alpha, sigma_weights)
+    dt_smooth = gaussian(dt, sigma_seeds) if sigma_seeds else dt
+    maxima = local_maxima(dt_smooth, radius=2) & fg
+    seeds = connected_components(maxima, connectivity=3,
+                                 method="propagation")
+    if ws_method == "coarse":
+        ws, ok = coarse(height, seeds, min_size, refine_rounds,
+                        coarse_factor)
+    elif ws_method == "basins":
+        # tight capacities; the ok flag lets the stream's drain redo an
+        # overflowing block through the always-correct path
+        n = int(np.prod(fg.shape))
+        ws, ok = basins(height, seeds, None, 1, 64, min_size,
+                        max(n // 64, 1024), max(n // 8, 4096))
+    else:
+        raise NotImplementedError(
+            f"ws_algorithm={ws_method!r} is not ported yet (ROADMAP A9b)")
+    if return_height:
+        return ws, height, ok
+    return ws, ok
+
+
+def _stream_params(cfg: Dict[str, Any], device) -> Dict[str, Any]:
+    """The streamed pipeline's arguments.  The basins size filter is fused
+    into the device pass except on the CPU, where the host filter is the
+    faster route (``fuse_size_filter`` overrides); coarse always fuses."""
+    min_size = int(cfg.get("size_filter", 25) or 0)
+    algo = _ws_algorithm(cfg)
+    fuse_filter = cfg.get("fuse_size_filter")
+    if fuse_filter is None:
+        fuse_filter = torch.device(device).type != "cpu"
+    if algo == "coarse":
+        fuse_filter = True
+    return dict(
+        threshold=float(cfg.get("threshold", 0.25)),
+        sigma_seeds=float(cfg.get("sigma_seeds", 2.0)),
+        sigma_weights=float(cfg.get("sigma_weights", 2.0)),
+        alpha=float(cfg.get("alpha", 0.8)),
+        min_size=min_size if fuse_filter else 0,
+        return_height=not fuse_filter and bool(min_size),
+        ws_method=algo, refine_rounds=int(cfg.get("refine_rounds", 3)),
+        coarse_factor=int(cfg.get("coarse_factor", 2)))
+
+
+def _iter_ws_stream(blocks, cfg: Dict[str, Any], device):
+    """:func:`iter_ws_blocks_stream` yielding label tensors (int32 on the
+    device, or int64 from a host size filter)."""
+    unsupported = [k for k in ("apply_dt_2d", "apply_ws_2d", "pixel_pitch",
+                               "non_maximum_suppression") if cfg.get(k)]
+    if unsupported:
+        raise ValueError(
+            f"iter_ws_blocks_stream supports the plain 3d pipeline only; "
+            f"{unsupported} need run_ws_block")
+    from ..core.runtime import stage, stream_window
+    from ..ops.watershed import size_filter
+
+    params = _stream_params(cfg, device)
+    min_size = int(cfg.get("size_filter", 25) or 0)
+
+    def submit(b):
+        with stage("dispatch"):
+            return b, _ws_pipeline_3d(_as_device(b, device), **params)
+
+    def drain(entry):
+        b, out = entry
+        with stage("sync-execute"):
+            ok = bool(out[-1])
+        if not ok:
+            # capacity overflow (pathological height field): redo the
+            # block on the same device through the per-block path with the
+            # exact-capacity basins algorithm (re-running the coarse solve
+            # that just overflowed would waste a full pass)
+            with stage("device-ws-redo"):
+                return _run_ws_block_tensor(
+                    as_normalized_float(b), {**cfg, "ws_algorithm": "basins"},
+                    None, device)
+        if not params["return_height"]:
+            return out[0]
+        ws, height, _ = out
+        return torch.from_numpy(size_filter(ws.cpu().numpy(), height,
+                                            min_size).astype("int64"))
+
+    # bounded look-ahead: a few blocks in flight, drained as consumed
+    yield from stream_window(blocks, submit, drain,
+                             window=int(cfg.get("stream_window", 3)))
+
+
+def iter_ws_blocks_stream(blocks, cfg: Dict[str, Any], device="cuda"):
+    """Process a stream of 3d outer blocks through the fused watershed
+    pipeline on ``device``, yielding uint64 labels in input order; a block
+    whose watershed capacities overflow is redone by :func:`run_ws_block`
+    with ``ws_algorithm="basins"`` on the same device.  3d path only: 2d
+    modes, masks and ``pixel_pitch`` need :func:`run_ws_block`."""
+    for ws in _iter_ws_stream(blocks, cfg, device):
+        yield ws.cpu().numpy().astype("uint64")
+
+
+def run_ws_blocks_stream(blocks, cfg: Dict[str, Any], device="cuda"):
+    """List-returning wrapper over :func:`iter_ws_blocks_stream`."""
+    return list(iter_ws_blocks_stream(blocks, cfg, device))
+
+
+def run_ws_block_seeded(data: np.ndarray, cfg: Dict[str, Any],
+                        initial_seeds: np.ndarray, label_offset: int,
+                        mask: Optional[np.ndarray] = None,
+                        device="cuda") -> np.ndarray:
+    """Watershed continuing existing labels on ``device``:
+    ``initial_seeds`` (uint64, 0 = free) keep their ids; new seeds from DT
+    maxima in unlabeled areas get ids offset by ``label_offset``
+    (reference: two_pass_watershed.py:210-255 ``_ws_pass2``).  3d only —
+    the 2d variants cannot propagate seeds across slices."""
+    from ..ops.components import connected_components
+    from ..ops.edt import distance_transform_edt
+    from ..ops.filters import gaussian, local_maxima
+    from ..ops.rag import densify_labels
+    from ..ops.watershed import seeded_watershed
+
+    if cfg.get("apply_dt_2d") or cfg.get("apply_ws_2d"):
+        raise ValueError(
+            "two-pass watershed supports 3d only: per-slice 2d watershed "
+            "cannot continue seeds across slices — disable apply_dt_2d/"
+            "apply_ws_2d or use the single-pass task")
+    threshold = cfg.get("threshold", 0.25)
+    sigma_seeds = cfg.get("sigma_seeds", 2.0)
+    pixel_pitch = cfg.get("pixel_pitch")
+
+    x = _as_device(data, device)
+    tmask = None if mask is None else _as_device(mask.astype(bool), device)
+    fg = x < threshold
+    if tmask is not None:
+        fg = fg & tmask
+    dt = distance_transform_edt(
+        fg, sampling=tuple(pixel_pitch) if pixel_pitch else None)
+    height = _height_map(x, dt, cfg.get("alpha", 0.8),
+                         cfg.get("sigma_weights", 2.0))
+
+    # densify the initial seeds to 1..k for the device (lut[0] == 0)
+    lut, dense_init = densify_labels(initial_seeds)
+    k = len(lut) - 1
+    dense_init = _as_device(dense_init, device)
+    dt_smooth = gaussian(dt, sigma_seeds) if sigma_seeds else dt
+    maxima = local_maxima(dt_smooth, radius=2) & fg & ~(dense_init > 0)
+    new_cc = connected_components(maxima, connectivity=data.ndim,
+                                  method="propagation")
+    combined = torch.where(dense_init > 0, dense_init,
+                           torch.where(new_cc > 0, new_cc + k, 0))
+    ws = seeded_watershed(height, combined, tmask,
+                          connectivity=1).cpu().numpy()
+
+    # map back: 1..k -> original seed ids; >k -> compacted + offset
+    out = np.zeros(ws.shape, dtype="uint64")
+    init_part = (ws >= 1) & (ws <= k)
+    if k:
+        out[init_part] = lut[ws[init_part]]
+    new_part = ws > k
+    if new_part.any():
+        new_ids = np.unique(ws[new_part])
+        if cfg.get("id_budget") and len(new_ids) >= cfg["id_budget"]:
+            raise RuntimeError(
+                f"{len(new_ids)} new seeds exceed the per-block id budget "
+                f"{cfg['id_budget']} — labels would collide across blocks")
+        out[new_part] = (np.searchsorted(new_ids, ws[new_part])
+                         .astype("uint64") + np.uint64(label_offset) + 1)
+
+    # size-filter NEW fragments only (continued seeds are partial views of
+    # segments that extend beyond this block), then regrow the survivors
+    min_size = cfg.get("size_filter", 0)
+    if min_size and new_part.any():
+        ids, sizes = np.unique(out[new_part], return_counts=True)
+        small = ids[sizes < min_size]
+        if len(small):
+            out[np.isin(out, small)] = 0
+            lut2, dense2 = densify_labels(out)
+            regrown = seeded_watershed(height, _as_device(dense2, device),
+                                       tmask, connectivity=1).cpu().numpy()
+            out = lut2[regrown]
+    return out
+
+
+def _compact_ids(inner: torch.Tensor, block_id: int,
+                 unit: int) -> np.ndarray:
+    """A block's inner labels compacted to 1..k (k <= inner voxel count <
+    ``unit``), THEN offset by ``block_id * unit`` for global uniqueness
+    (reference: watershed.py:307): uncompacted root indices range over the
+    larger outer block and would collide across blocks.  Sorted uniques +
+    searchsorted on the labels' device; returns uint64."""
+    flat = inner.reshape(-1).to(torch.int64)
+    nonzero = torch.unique(flat[flat > 0])
+    compact = torch.searchsorted(nonzero, flat) + 1 + block_id * unit
+    compact = torch.where(flat > 0, compact, 0)
+    return compact.reshape(inner.shape).cpu().numpy().astype("uint64")
+
+
+class WatershedTask(BlockTask):
+    """Blockwise DT watershed (reference: WatershedBase, watershed.py:34-110).
+
+    Labels are made globally unique by offsetting with
+    ``block_id * prod(block_shape)`` (reference: watershed.py:307); chain
+    RelabelWorkflow (or use WatershedWorkflow) to compact them.
+
+    ``pass_id``/``seeded`` implement the checkerboard two-pass variant
+    (reference: two_pass_watershed.py:60-94): color-0 blocks run the plain
+    pipeline; color-1 blocks read the pass-1 labels visible in their halo
+    and continue them as seeds.
+    """
+
+    task_name = "watershed"
+    #: None = all blocks (single pass); 0/1 = checkerboard color
+    pass_id: Optional[int] = None
+    seeded: bool = False
+
+    def __init__(self, input_path: str, input_key: str, output_path: str,
+                 output_key: str, mask_path: str = "", mask_key: str = "",
+                 **kw):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.output_path = output_path
+        self.output_key = output_key
+        self.mask_path = mask_path
+        self.mask_key = mask_key
+        super().__init__(**kw)
+        if self.target == "mesh":
+            raise NotImplementedError(
+                "target='mesh' is not ported yet (ROADMAP A14)")
+        self.device = task_device(self.global_config)
+        _check_ported(self.task_config)
+
+    @staticmethod
+    def default_task_config():
+        conf = BlockTask.default_task_config()
+        conf.update({
+            "threshold": 0.25, "apply_dt_2d": False, "apply_ws_2d": False,
+            "sigma_seeds": 2.0, "sigma_weights": 2.0, "size_filter": 25,
+            "alpha": 0.8, "halo": [4, 32, 32], "pixel_pitch": None,
+            "non_maximum_suppression": False,
+            "invert_inputs": False, "agglomerate_channels": "mean",
+            "channel_begin": 0, "channel_end": None,
+        })
+        return conf
+
+    def run_impl(self):
+        with file_reader(self.input_path, "r") as f:
+            in_shape = f[self.input_key].shape
+        shape = list(in_shape[1:] if len(in_shape) == 4 else in_shape)
+        block_shape = self.global_block_shape()[-len(shape):]
+        with file_reader(self.output_path) as f:
+            f.require_dataset(self.output_key, shape=shape, chunks=block_shape,
+                              dtype="uint64")
+        block_list = self.blocks_in_volume(shape, block_shape)
+        if self.pass_id is not None:
+            colors = Blocking(shape, block_shape).checkerboard()
+            allowed = set(block_list)
+            block_list = [b for b in colors[self.pass_id] if b in allowed]
+        self.run_jobs(block_list, {
+            "input_path": self.input_path, "input_key": self.input_key,
+            "output_path": self.output_path, "output_key": self.output_key,
+            "mask_path": self.mask_path, "mask_key": self.mask_key,
+            "shape": shape, "block_shape": block_shape,
+            "seeded": self.seeded, "device": self.device,
+        }, n_jobs=self.max_jobs)
+
+    @classmethod
+    def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
+        from ..core.device import resolve_device
+        from ..core.runtime import (prefetch_iter, stage, stage_add,
+                                    stage_bytes)
+
+        cfg = job_config["config"]
+        device = resolve_device(cfg["device"])
+        if device.type == "cuda":
+            from ..ops.edt import build_kernel
+
+            build_kernel()
+        blocking = Blocking(cfg["shape"], cfg["block_shape"])
+        halo = cfg.get("halo") or [0] * blocking.ndim
+        halo = halo[-blocking.ndim:]
+        ds_in = file_reader(cfg["input_path"], "r")[cfg["input_key"]]
+        ds_out = file_reader(cfg["output_path"])[cfg["output_key"]]
+        mask = None
+        if cfg.get("mask_path"):
+            from ..core.volume_views import load_mask
+
+            mask = load_mask(cfg["mask_path"], cfg["mask_key"], cfg["shape"])
+
+        label_offset_unit = int(np.prod(cfg["block_shape"]))
+        seeded = cfg.get("seeded", False)
+        # blocks are loaded at the UNIFORM outer shape (volume borders
+        # reflect-padded): every block runs at one shape
+        outer_shape = tuple(b + 2 * h
+                            for b, h in zip(cfg["block_shape"], halo))
+
+        def _write(bb, arr) -> None:
+            import time
+
+            t0 = time.perf_counter()
+            ds_out[bb] = arr
+            stage_add("store-write", time.perf_counter() - t0)
+            stage_bytes("store-write", arr.nbytes)
+
+        def _write_result(block_id: int, ws: torch.Tensor) -> None:
+            block = blocking.get_block(block_id)
+            inner_sl = tuple(slice(h, h + (b.stop - b.start))
+                             for h, b in zip(halo, block.bb))
+            with stage("d2h-compact"):
+                ids = _compact_ids(ws[inner_sl], block_id, label_offset_unit)
+            _write(block.bb, ids)
+            log_fn(f"processed block {block_id}")
+
+        # plain 3d path: stream every block of the job through the fused
+        # pipeline — transfers and compute of consecutive blocks overlap
+        streamable = (not seeded and mask is None
+                      and not cfg.get("apply_dt_2d")
+                      and not cfg.get("pixel_pitch"))
+        if streamable:
+            block_ids = list(job_config["block_list"])
+            # threaded read look-ahead: block i+2's store read overlaps
+            # block i's device compute and block i-1's write
+            def _read(bid):
+                with stage("store-read"):
+                    return _read_padded_input(ds_in, blocking.get_block(bid),
+                                              cfg, halo, raw=True)
+
+            reads = prefetch_iter(block_ids, _read)
+            for bid, ws in zip(block_ids, _iter_ws_stream(reads, cfg,
+                                                          device)):
+                _write_result(bid, ws)
+            return
+
+        for block_id in job_config["block_list"]:
+            block = blocking.get_block(block_id)
+            bh = blocking.get_block_with_halo(block_id, halo)
+            data = _read_padded_input(ds_in, block, cfg, halo)
+            bmask = None
+            if mask is not None:
+                m = np.asarray(mask[bh.outer.bb]) > 0
+                if not m.any():
+                    log_fn(f"processed block {block_id}")
+                    continue
+                # edge-replicate onto the uniform frame (same geometry the
+                # reflect-padded data read uses)
+                lo_pad = [h - (b - o.start)
+                          for h, b, o in zip(halo, block.begin, bh.outer.bb)]
+                hi_pad = [os_ - lp - (o.stop - o.start)
+                          for os_, lp, o in zip(outer_shape, lo_pad,
+                                                bh.outer.bb)]
+                bmask = np.pad(m, list(zip(lo_pad, hi_pad)), mode="edge")
+            inner_sl = tuple(slice(h, h + (b.stop - b.start))
+                             for h, b in zip(halo, block.bb))
+            if seeded:
+                # pass 2: labels already written by the other checkerboard
+                # color act as seeds; same-color owners are masked out so
+                # the result is order-independent.  Seeds pad with 0
+                # (reflecting would duplicate label ids)
+                seeds = load_with_halo(ds_out, block.begin,
+                                       cfg["block_shape"], halo,
+                                       padding_mode="constant")
+                own_color = sum(blocking.block_grid_position(block_id)) % 2
+                grids = np.meshgrid(
+                    *[(np.arange(b - h, b - h + o)) // bs
+                      for b, h, o, bs in zip(block.begin, halo, outer_shape,
+                                             cfg["block_shape"])],
+                    indexing="ij")
+                seeds[sum(grids) % 2 == own_color] = 0
+                ws = run_ws_block_seeded(
+                    data, {**cfg, "id_budget": label_offset_unit}, seeds,
+                    block_id * label_offset_unit, bmask, device=device)
+                _write(block.bb, ws[inner_sl])
+                log_fn(f"processed block {block_id}")
+                continue
+            _write_result(block_id,
+                          _run_ws_block_tensor(data, cfg, bmask, device))
+
+
+class WatershedPass1Task(WatershedTask):
+    """Checkerboard color-0 blocks, plain pipeline (two_pass_watershed pass 0)."""
+
+    task_name = "watershed_pass1"
+    pass_id = 0
+
+
+class WatershedPass2Task(WatershedTask):
+    """Checkerboard color-1 blocks, seeded by the pass-1 labels in the halo
+    (reference: two_pass_watershed.py:210-255)."""
+
+    task_name = "watershed_pass2"
+    pass_id = 1
+    seeded = True
+
+
+class WatershedFromSeedsTask(BlockTask):
+    """Blockwise seeded watershed from a precomputed seed volume
+    (reference: watershed_from_seeds.py:25).  Not ported yet."""
+
+    task_name = "watershed_from_seeds"
+
+    def __init__(self, *args, **kw):
+        raise NotImplementedError(
+            "WatershedFromSeedsTask is not ported yet (ROADMAP A9b)")
+
+
+class WatershedWorkflow(Task):
+    """[TwoPass]Watershed -> RelabelWorkflow (reference:
+    watershed/watershed_workflow.py:20-60).  ``agglomeration=True`` (the
+    block-local RAG agglomeration) is not ported yet (ROADMAP A9b)."""
+
+    def __init__(self, input_path: str, input_key: str, output_path: str,
+                 output_key: str, tmp_folder: str, config_dir: str,
+                 max_jobs: int = 1, target: str = "gpu",
+                 mask_path: str = "", mask_key: str = "",
+                 two_pass: bool = False, agglomeration: bool = False,
+                 dependency: Optional[Task] = None):
+        if two_pass and agglomeration:
+            raise ValueError(
+                "two_pass and agglomeration are mutually exclusive: the "
+                "block-local agglomerate re-offsets ids per block, splitting "
+                "every segment the seeded pass-2 stitched across faces")
+        if agglomeration:
+            raise NotImplementedError(
+                "agglomeration=True (AgglomerateTask) is not ported yet "
+                "(ROADMAP A9b)")
+        self.input_path = input_path
+        self.input_key = input_key
+        self.output_path = output_path
+        self.output_key = output_key
+        self.mask_path = mask_path
+        self.mask_key = mask_key
+        self.two_pass = two_pass
+        self.tmp_folder = tmp_folder
+        self.config_dir = config_dir
+        self.max_jobs = max_jobs
+        self.target = target
+        self.dependency = dependency
+        super().__init__()
+
+    def requires(self):
+        common = dict(tmp_folder=self.tmp_folder, config_dir=self.config_dir,
+                      max_jobs=self.max_jobs, target=self.target)
+        ws_kwargs = dict(
+            input_path=self.input_path, input_key=self.input_key,
+            output_path=self.output_path, output_key=self.output_key,
+            mask_path=self.mask_path, mask_key=self.mask_key)
+        if self.two_pass:
+            p1 = WatershedPass1Task(dependency=self.dependency, **ws_kwargs,
+                                    **common)
+            dep: Task = WatershedPass2Task(dependency=p1, **ws_kwargs,
+                                           **common)
+        else:
+            dep = WatershedTask(dependency=self.dependency, **ws_kwargs,
+                                **common)
+        return RelabelWorkflow(
+            input_path=self.output_path, input_key=self.output_key,
+            identifier="relabel_ws", dependency=dep, **common)
+
+    def output(self):
+        return FileTarget(os.path.join(self.tmp_folder,
+                                       "write_relabel_ws.status"))

@@ -77,10 +77,23 @@ def test_importing_the_port_loads_no_jax():
     assert res.stdout.strip().splitlines()[-1] == "ok", res.stdout
 
 
+def test_split_and_fused_chain_modules_are_held_to_the_rule():
+    """The modules both chains run are among those the two checks above
+    walk."""
+    mods = set(_port_modules())
+    for name in ("core.device", "core.volume_views", "ops.rag",
+                 "workflows.watershed", "workflows.relabel",
+                 "workflows.graph", "workflows.features",
+                 "workflows.segmentation", "workflows.fused_pipeline"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+
+
 def test_default_device_is_the_card_and_raises_without_one(tmp_path):
-    """The global config's device defaults to "cuda"; building the fused
-    workflow with it on this card-less host raises at DAG construction
-    (before any work runs), and the workflow's target defaults to "gpu"."""
+    """The global config's device defaults to "cuda"; building the
+    multicut workflow with it on this card-less host raises at DAG
+    construction (before any work runs) — the split chain (the default)
+    and the fused chain alike — and the workflow's target defaults to
+    "gpu"."""
     import numpy as np
     import torch
 
@@ -97,13 +110,20 @@ def test_default_device_is_the_card_and_raises_without_one(tmp_path):
                           dtype="uint8")[:] = np.zeros((8, 8, 8), "uint8")
     cfg = str(tmp_path / "cfg")
     ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8]})
-    wf = ctp.MulticutSegmentationWorkflow(
-        input_path=path, input_key="bmap", ws_path=path, ws_key="ws",
-        problem_path=str(tmp_path / "p.n5"), output_path=path,
-        output_key="seg", tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
-    assert wf.target == "gpu"
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ctp.build([wf])
+    kw = dict(input_path=path, input_key="bmap", ws_path=path, ws_key="ws",
+              problem_path=str(tmp_path / "p.n5"), output_path=path,
+              output_key="seg", tmp_folder=str(tmp_path / "tmp"),
+              config_dir=cfg)
+    wf = ctp.MulticutSegmentationWorkflow(**kw)
+    assert wf.target == "gpu" and not wf.fused
+    ws = ctp.WatershedWorkflow(
+        input_path=path, input_key="bmap", output_path=path, output_key="ws",
+        tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
+    assert ws.target == "gpu"
+    for last in (ctp.MulticutSegmentationWorkflow(dependency=ws, **kw),
+                 ctp.MulticutSegmentationWorkflow(fused=True, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ctp.build([last])
     # nothing ran: no fragments were written, no task completed
     with ctp.file_reader(path, "r") as f:
         assert "ws" not in f
@@ -112,16 +132,60 @@ def test_default_device_is_the_card_and_raises_without_one(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"fused": False}, "ROADMAP A9"),
+    ({"agglomeration": True}, "ROADMAP A9"),
 ])
 def test_unported_workflow_options_raise(tmp_path, kw, match):
+    """The split chain runs (``fused=False`` is ported); the watershed
+    workflow's block-local agglomeration is not, and raises naming its
+    ROADMAP item."""
     import cluster_tools_tpu_torch as ctp
 
+    ctp.MulticutSegmentationWorkflow(
+        input_path="a.n5", input_key="x", ws_path="a.n5", ws_key="w",
+        problem_path="p.n5", output_path="a.n5", output_key="s",
+        tmp_folder=str(tmp_path), config_dir=str(tmp_path), fused=False)
     with pytest.raises(NotImplementedError, match=match):
-        ctp.MulticutSegmentationWorkflow(
-            input_path="a.n5", input_key="x", ws_path="a.n5", ws_key="w",
-            problem_path="p.n5", output_path="a.n5", output_key="s",
-            tmp_folder=str(tmp_path), config_dir=str(tmp_path), **kw)
+        ctp.WatershedWorkflow(
+            input_path="a.n5", input_key="x", output_path="a.n5",
+            output_key="w", tmp_folder=str(tmp_path),
+            config_dir=str(tmp_path), **kw)
+
+
+@pytest.mark.parametrize("task,task_cfg,kw,match", [
+    ("watershed", {"apply_ws_2d": True}, {}, "ROADMAP A9b"),
+    ("watershed", {"non_maximum_suppression": True}, {}, "ROADMAP A9b"),
+    ("watershed", {"ws_algorithm": "flood"}, {}, "ROADMAP A9b"),
+    ("watershed", {"impl": "host"}, {}, "ROADMAP A9b"),
+    ("watershed", {}, {"target": "mesh"}, "ROADMAP A14"),
+    ("watershed_from_seeds", {}, {}, "ROADMAP A9b"),
+    ("block_edge_features", {"filters": ["gaussianSmoothing"],
+                             "sigmas": [1.0]}, {}, "ROADMAP A13"),
+])
+def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
+                                            match):
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+    from cluster_tools_tpu_torch.workflows.features import BlockEdgeFeatures
+    from cluster_tools_tpu_torch.workflows.watershed import (
+        WatershedFromSeedsTask, WatershedTask)
+
+    cfg = str(tmp_path / "cfg")
+    ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8],
+                                        "device": "cpu"})
+    ConfigDir(cfg).write_task_config(task, task_cfg)
+    common = dict(tmp_folder=str(tmp_path / "tmp"), config_dir=cfg, **kw)
+    with pytest.raises(NotImplementedError, match=match):
+        if task == "watershed":
+            WatershedTask(input_path="a.n5", input_key="x",
+                          output_path="a.n5", output_key="w", **common)
+        elif task == "watershed_from_seeds":
+            WatershedFromSeedsTask(
+                input_path="a.n5", input_key="x", seeds_path="a.n5",
+                seeds_key="s", output_path="a.n5", output_key="w", **common)
+        else:
+            BlockEdgeFeatures(
+                input_path="a.n5", input_key="x", labels_path="a.n5",
+                labels_key="w", graph_path="p.n5", output_path="p.n5",
+                **common)
 
 
 @pytest.mark.parametrize("task_cfg,match", [
