@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, then runs six phases, each of which must pass:
+sources, then runs eight phases, each of which must pass:
 
 1. the build;
 2. the min-plus EDT kernel against its plain PyTorch version (in place
@@ -26,7 +26,20 @@ sources, then runs six phases, each of which must pass:
 6. the split chain at full size on phase 4's volume, checked against the
    ground truth, its fragments held to the same partition as phase 4's
    fused fragments, and its kernel launches counted (3 per block, plus 3
-   per block the watershed redid after a capacity overflow).
+   per block the watershed redid after a capacity overflow);
+7. the affinity path, card against CPU on small volumes: (a) the
+   default-width U-Net (weights from seed 0, written in the JAX
+   package's checkpoint format) in float32 and bfloat16; (b)
+   ``InferenceTask`` on config 5's ``(32, 256, 256)`` volume; (c)
+   ``MwsWorkflow`` and ``TwoPassMwsWorkflow`` on one stored 12-channel
+   uint8 affinity volume, the card and the CPU (both block paths) giving
+   identical labels; (d) config 5's chain ``InferenceTask`` ->
+   ``MwsWorkflow`` on the card;
+8. the affinity path at full size: (a) ``InferenceTask`` with the
+   default-width U-Net on phase 4's volume, with the forward pass timed
+   against its bound; (b) ``TwoPassMwsWorkflow`` at config 3's size,
+   checked against the ground truth.  This path launches no kernel of
+   the port (no Pallas kernel lies on it in the JAX package).
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -564,6 +577,449 @@ def main_path(root: str, shape, block):
             "peak_device_bytes": peak, "quality": sc}, gt
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the affinity path (U-Net inference, mutex watershed)
+# ---------------------------------------------------------------------------
+
+#: config 5's volume and geometry (the JAX package's bench_configs.py)
+INF_SHAPE = (32, 256, 256)
+INF_BLOCK = [16, 128, 128]
+AFF_HALO = [4, 16, 16]
+#: phase 7's mutex-watershed volume and phase 8's (config 3's size)
+MWS_SMALL_SHAPE = (64, 256, 256)
+MWS_SMALL_BLOCK = [32, 128, 128]
+MWS_SHAPE = (64, 512, 512)
+MWS_BLOCK = [32, 256, 256]
+#: card against CPU: the float32 U-Net (TF32 off) sums in other orders;
+#: the bfloat16 one rounds after sums in other orders (the CPU's own
+#: bfloat16 against float32 difference at this width is ~8e-3 / 8e-4)
+UNET_F32_ATOL = 1e-4
+UNET_BF16_ATOL, UNET_BF16_MEAN = 3e-2, 3e-3
+#: InferenceTask card against CPU, uint8 steps and share of voxels
+U8_STEPS, U8_SHARE = 8, 0.35
+#: the JAX bench's MWS gate (bench_configs.py:332)
+RAND_GATE = 0.1
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16 = 989e12
+UNET_CONFIG = {"out_channels": 12, "features": [16, 32, 64, 128],
+               "anisotropic": True}
+
+
+def affs_from_gt(gt: np.ndarray, offsets, seed: int = 0) -> np.ndarray:
+    """uint8 affinities of a ground truth (the JAX bench's recipe,
+    bench_configs.py:68-79): 0.9 inside a segment, 0.05 across, uniform
+    noise of +-0.05, clipped, requantized as InferenceTask writes them."""
+    from cluster_tools_tpu_torch.ops.mws import _offset_slices
+
+    rng = np.random.RandomState(seed)
+    affs = np.full((len(offsets),) + gt.shape, 0.05, dtype="float32")
+    for c, off in enumerate(offsets):
+        sl_a, sl_b = _offset_slices(off, gt.shape)
+        affs[c][sl_a] = np.where(gt[sl_a] == gt[sl_b], 0.9, 0.05)
+        affs[c] += (rng.rand(*gt.shape).astype("float32") - 0.5) * 0.1
+    return np.round(np.clip(affs, 0.0, 1.0) * 255).astype("uint8")
+
+
+def write_dataset(path: str, key: str, data: np.ndarray, chunks) -> None:
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    with file_reader(path) as f:
+        f.require_dataset(key, shape=data.shape, chunks=list(chunks),
+                          dtype=data.dtype)[:] = data
+
+
+def read_dataset(path: str, key: str) -> np.ndarray:
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    with file_reader(path, "r") as f:
+        return f[key][:]
+
+
+def unet_cost(model, shape):
+    """(FLOP, bytes) of one forward pass of ``model`` on one padded
+    block of ``shape``: the multiply-adds of every convolution, and the
+    least traffic of a layer-by-layer execution — each conv + GroupNorm +
+    GELU layer, max-pool, up-convolution and concatenation reads its
+    bfloat16 inputs once and writes its output once; the float32 input
+    read once, the float32 output written once."""
+    v = int(np.prod(shape))
+    cin = model.encoders[0].convs[0].in_channels
+    flop, nbytes = 0.0, 4.0 * v * cin
+    feats = list(model.features)
+    vols = [v]
+    for s in model.scale_factors:
+        vols.append(vols[-1] // int(np.prod(s)))
+
+    def block(c_in, f, vol):
+        return (2.0 * 27 * (c_in * f + f * f) * vol,
+                2.0 * (c_in + 2 * f + f) * vol)
+
+    c = cin
+    for lv, f in enumerate(feats[:-1]):
+        fl, by = block(c, f, vols[lv])
+        flop, nbytes = flop + fl, nbytes + by
+        nbytes += 2.0 * f * (vols[lv] + vols[lv + 1])  # max-pool
+        c = f
+    fl, by = block(c, feats[-1], vols[-1])
+    flop, nbytes = flop + fl, nbytes + by
+    for lv in reversed(range(len(feats) - 1)):
+        f_in, f = feats[lv + 1], feats[lv]
+        flop += 2.0 * f_in * f * vols[lv]            # up-convolution
+        nbytes += 2.0 * (f_in * vols[lv + 1] + f * vols[lv])
+        nbytes += 2.0 * (2 * f + 2 * f) * vols[lv]  # concatenation
+        fl, by = block(2 * f, f, vols[lv])
+        flop, nbytes = flop + fl, nbytes + by
+    n_out = model.head.out_channels
+    flop += 2.0 * feats[0] * n_out * v
+    nbytes += 2.0 * feats[0] * v + 4.0 * n_out * v
+    return flop, nbytes
+
+
+def make_checkpoint(root: str) -> str:
+    """The default-width U-Net with weights made from seed 0, written in
+    the JAX package's checkpoint format by the port."""
+    import torch
+
+    from cluster_tools_tpu_torch.models.checkpoint import save_checkpoint
+    from cluster_tools_tpu_torch.models.unet import create_unet
+
+    torch.manual_seed(0)
+    model = create_unet(**UNET_CONFIG)
+    path = os.path.join(root, "unet_ckpt")
+    save_checkpoint(path, UNET_CONFIG, model.state_dict())
+    return path
+
+
+def unet_card_vs_cpu(ckpt: str, raw: np.ndarray):
+    """Phase 7a: the default-width U-Net forward on the card and on the
+    CPU, float32 and bfloat16, on one standardized padded block of
+    config 5's geometry."""
+    import torch
+
+    from cluster_tools_tpu_torch.models.checkpoint import load_checkpoint
+
+    outer = [b + 2 * h for b, h in zip(INF_BLOCK, AFF_HALO)]
+    x = torch.from_numpy(raw[:outer[0], :outer[1], :outer[2]].astype(
+        "float32"))
+    x = ((x - x.mean()) / x.std(correction=0))[None, None]
+    out = {}
+    for dtype, atol, mean_tol in ((torch.float32, UNET_F32_ATOL, None),
+                                  (torch.bfloat16, UNET_BF16_ATOL,
+                                   UNET_BF16_MEAN)):
+        preds = {}
+        for tag, dev in (("card", "cuda"), ("cpu", "cpu")):
+            model, _ = load_checkpoint(ckpt, dtype=dtype)
+            model = model.to(dev)
+            with torch.no_grad():
+                preds[tag] = model(x.to(dev)).cpu()
+        err = (preds["card"] - preds["cpu"]).abs()
+        rec = {"dtype": str(dtype), "shape": list(x.shape),
+               "max_abs_err": float(err.max()),
+               "mean_abs_err": float(err.mean()), "atol": atol,
+               "mean_tol": mean_tol}
+        log(f"unet-card-vs-cpu {json.dumps(rec)}")
+        if not (torch.isfinite(preds["card"]).all()
+                and rec["max_abs_err"] <= atol
+                and (mean_tol is None or rec["mean_abs_err"] <= mean_tol)):
+            raise AssertionError(f"U-Net card and CPU disagree: {rec}")
+        out[str(dtype)] = rec
+    return out
+
+
+def run_inference(workdir: str, store: str, raw_key: str, out_key: str,
+                  ckpt: str, block, device: str):
+    """``InferenceTask`` (12 uint8 channels) on ``device``; returns (wall
+    s, status JSON)."""
+    import torch
+
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+
+    cfg_dir = os.path.join(workdir, "configs")
+    ConfigDir(cfg_dir).write_global_config({"block_shape": list(block),
+                                            "device": device})
+    # four reader and writer threads: the uint8 requantization of the
+    # 12-channel float32 predictions runs on the host
+    ConfigDir(cfg_dir).write_task_config("inference",
+                                         {"threads_per_job": 4})
+    tmp = os.path.join(workdir, "tmp")
+    task = ctp.InferenceTask(
+        input_path=store, input_key=raw_key, output_path=store,
+        output_key={out_key: [0, UNET_CONFIG["out_channels"]]},
+        checkpoint_path=ckpt, halo=AFF_HALO, tmp_folder=tmp,
+        config_dir=cfg_dir, max_jobs=1, target="gpu")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctp.build([task], raise_on_failure=True)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "inference.status")) as fh:
+        return wall, json.load(fh)
+
+
+def inference_card_vs_cpu(root: str, ckpt: str, raw: np.ndarray):
+    """Phase 7b: ``InferenceTask`` on config 5's volume on the card and on
+    the CPU; the uint8 outputs differ by at most U8_STEPS steps on at
+    most U8_SHARE of the voxels."""
+    store = os.path.join(root, "inf_small", "data.n5")
+    write_dataset(store, "raw", raw, INF_BLOCK)
+    for tag, dev in (("card", "cuda"), ("cpu", "cpu")):
+        wall, _ = run_inference(os.path.join(root, "inf_small", tag), store,
+                                "raw", f"affs_{tag}", ckpt, INF_BLOCK, dev)
+        log(f"inference-small {tag}: shape {list(INF_SHAPE)} wall_s {wall}")
+    a = read_dataset(store, "affs_card").astype("int16")
+    b = read_dataset(store, "affs_cpu").astype("int16")
+    steps = np.abs(a - b)
+    rec = {"max_steps": int(steps.max()),
+           "share_differing": float((steps > 0).mean()),
+           "mean_value": float(a.mean()), "bound_steps": U8_STEPS,
+           "bound_share": U8_SHARE}
+    log(f"inference-small card-vs-cpu {json.dumps(rec)}")
+    if a.shape != (UNET_CONFIG["out_channels"],) + INF_SHAPE or \
+            rec["max_steps"] > U8_STEPS or \
+            rec["share_differing"] > U8_SHARE:
+        raise AssertionError(f"InferenceTask card and CPU disagree: {rec}")
+    return store, rec
+
+
+def run_mws(workdir: str, store: str, in_key: str, out_key: str, block,
+            device: str, two_pass: bool, impl: str = "auto", halo=None):
+    """``MwsWorkflow`` (or ``TwoPassMwsWorkflow``) over DEFAULT_OFFSETS on
+    ``device`` with the task config's ``impl``, target ``threads`` (the
+    jobs' host scans overlap); returns (wall s, labels, status JSONs by
+    task)."""
+    import torch
+
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+    from cluster_tools_tpu_torch.models.unet import DEFAULT_OFFSETS
+
+    cfg_dir = os.path.join(workdir, "configs")
+    ConfigDir(cfg_dir).write_global_config({"block_shape": list(block),
+                                            "device": device})
+    for name in ("mws_blocks", "mws_pass1", "mws_pass2"):
+        ConfigDir(cfg_dir).write_task_config(name, {"impl": impl})
+    tmp = os.path.join(workdir, "tmp")
+    wf_cls = ctp.TwoPassMwsWorkflow if two_pass else ctp.MwsWorkflow
+    wf = wf_cls(input_path=store, input_key=in_key, output_path=store,
+                output_key=out_key,
+                offsets=[list(o) for o in DEFAULT_OFFSETS], halo=halo,
+                tmp_folder=tmp, config_dir=cfg_dir,
+                max_jobs=os.cpu_count() or 1, target="threads")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctp.build([wf], raise_on_failure=True)
+    wall = time.perf_counter() - t0
+    status = {}
+    for name in sorted(os.listdir(tmp)):
+        if name.endswith(".status"):
+            with open(os.path.join(tmp, name)) as fh:
+                st = json.load(fh)
+            status[st.get("task", name[:-len(".status")])] = st
+    return wall, read_dataset(store, out_key), status
+
+
+def mws_card_vs_cpu(root: str):
+    """Phase 7c: ``MwsWorkflow`` and ``TwoPassMwsWorkflow`` on one stored
+    12-channel uint8 affinity volume: the card (impl auto, the
+    device-sorted path) and the CPU (impl host, and impl device) write
+    identical uint64 labels."""
+    from cluster_tools_tpu_torch.models.unet import DEFAULT_OFFSETS
+    from cluster_tools_tpu_torch.utils.synthetic import synthetic_instance
+
+    gt, _ = synthetic_instance(MWS_SMALL_SHAPE, seed=2)
+    store = os.path.join(root, "mws_small", "data.n5")
+    write_dataset(store, "affs", affs_from_gt(gt, DEFAULT_OFFSETS),
+                  [1] + MWS_SMALL_BLOCK)
+    out = {}
+    for two_pass in (False, True):
+        name = "two_pass" if two_pass else "single"
+        labels = {}
+        for where, dev, impl in (("card", "cuda", "auto"),
+                                 ("cpu", "cpu", "host"),
+                                 ("cpu", "cpu", "device")):
+            tag = f"{name}_{where}_{impl}"
+            wall, labels[tag], _ = run_mws(
+                os.path.join(root, "mws_small", tag), store, "affs",
+                f"seg_{tag}", MWS_SMALL_BLOCK, dev, two_pass, impl,
+                halo=AFF_HALO)
+            log(f"mws-small {tag}: shape {list(MWS_SMALL_SHAPE)} "
+                f"wall_s {wall} n_segments {int(labels[tag].max())}")
+        ref = labels[f"{name}_card_auto"]
+        same = {tag: bool(np.array_equal(lab, ref))
+                for tag, lab in labels.items()}
+        sc = scores(ref, gt)
+        log(f"mws-small {name} identical {json.dumps(same)} "
+            f"quality {json.dumps(sc)}")
+        if not all(same.values()) or ref.min() < 1:
+            raise AssertionError(f"mws-small {name}: card and CPU labels "
+                                 f"differ: {same}")
+        out[name] = {"identical": same, "quality": sc}
+    return out
+
+
+def config5_chain(root: str, store: str, ckpt: str):
+    """Phase 7d: BASELINE config 5 on the card, ``InferenceTask`` ->
+    ``MwsWorkflow`` over the U-Net's 12 channels (config 5's geometry,
+    the MWS without halo)."""
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+    from cluster_tools_tpu_torch.models.unet import DEFAULT_OFFSETS
+
+    wd = os.path.join(root, "config5")
+    cfg_dir = os.path.join(wd, "configs")
+    ConfigDir(cfg_dir).write_global_config({"block_shape": INF_BLOCK,
+                                            "device": "cuda"})
+    common = dict(tmp_folder=os.path.join(wd, "tmp"), config_dir=cfg_dir,
+                  max_jobs=1, target="gpu")
+    inf = ctp.InferenceTask(
+        input_path=store, input_key="raw", output_path=store,
+        output_key={"affs_chain": [0, UNET_CONFIG["out_channels"]]},
+        checkpoint_path=ckpt, halo=AFF_HALO, **common)
+    mws = ctp.MwsWorkflow(
+        input_path=store, input_key="affs_chain", output_path=store,
+        output_key="seg_chain", offsets=[list(o) for o in DEFAULT_OFFSETS],
+        dependency=inf, **common)
+    t0 = time.perf_counter()
+    ctp.build([mws], raise_on_failure=True)
+    wall = time.perf_counter() - t0
+    seg = read_dataset(store, "seg_chain")
+    n = int(seg.max())
+    log(f"config5-chain wall_s {wall} shape {list(seg.shape)} "
+        f"n_segments {n}")
+    if seg.shape != INF_SHAPE or seg.min() < 1 or \
+            len(np.unique(seg)) != n:
+        raise AssertionError("config 5 chain: labels not defined on every "
+                             "voxel or not consecutive")
+    return {"wall_s": wall, "n_segments": n}
+
+
+def time_forward(ckpt: str, outer):
+    """Median CUDA-event time of one default bfloat16 forward pass on an
+    outer block reflect-padded to the U-Net's divisor, and its FLOP /
+    bytes bounds."""
+    import torch
+
+    from cluster_tools_tpu_torch.models.checkpoint import load_checkpoint
+
+    model, _ = load_checkpoint(ckpt)
+    model = model.cuda()
+    padded = [-(-o // d) * d for o, d in zip(outer, model.min_divisor())]
+    x = torch.randn((1, 1) + tuple(padded), device="cuda")
+    with torch.no_grad():
+        ms = _time_ms(lambda: model(x), reps=5)
+        # where the forward's device time goes, by kernel
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in rows) or 1.0
+    top = [{"kernel": e.key[:60], "calls": e.count,
+            "ms": e.device_time_total / 1e3,
+            "share": e.device_time_total / total} for e in rows[:6]]
+    flop, nbytes = unet_cost(model, padded)
+    return {"padded_block": list(padded), "ms": ms, "flop": flop,
+            "bytes": nbytes, "flop_bound_ms": flop / PEAK_BF16 * 1e3,
+            "bytes_bound_ms": bytes_bound_ms(nbytes),
+            "profile_device_ms": total / 1e3, "profile_top": top}
+
+
+def inference_path(root: str, ckpt: str):
+    """Phase 8a: ``InferenceTask`` with the default-width U-Net on phase
+    4's ``(125, 1250, 1250)`` uint8 volume (its store still on disk),
+    blocks ``[50, 512, 512]``; the outer block ``(58, 544, 544)`` is
+    reflect-padded to ``(60, 544, 544)``."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+
+    store = os.path.join(root, "main", "data.n5")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    wall, status = run_inference(os.path.join(root, "inf_main"), store,
+                                 "bmap", "affs_unet", ckpt, BLOCK, "cuda")
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_blocks = Blocking(list(FULL_SHAPE), list(BLOCK)).n_blocks
+    nvox = int(np.prod(FULL_SHAPE))
+    log(f"inference-path wall_s {wall} voxels_per_s {nvox / wall} "
+        f"n_blocks {n_blocks} peak_device_bytes {peak} "
+        f"kernel_launches {json.dumps(launches)}")
+    log(f"inference-path stages {json.dumps(status.get('stages', {}))} "
+        f"stage_counts {json.dumps(status.get('stage_counts', {}))}")
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    with file_reader(store, "r") as f:
+        ds = f["affs_unet"]
+        mid = FULL_SHAPE[0] // 2
+        sample = ds[:, mid:mid + 2]
+    if ds.shape != (UNET_CONFIG["out_channels"],) + FULL_SHAPE or \
+            sample.max() == sample.min():
+        raise AssertionError("inference path: degenerate affinities")
+    fwd = time_forward(ckpt, [b + 2 * h for b, h in zip(BLOCK, AFF_HALO)])
+    log(f"inference-path forward {json.dumps(fwd)}")
+    return {"wall_s": wall, "n_blocks": n_blocks, "peak_device_bytes": peak,
+            "forward": fwd}
+
+
+def mws_path(root: str, gt: np.ndarray):
+    """Phase 8b: ``TwoPassMwsWorkflow`` at the JAX package's config-3 size
+    on the card: 12-channel uint8 affinities of a ``(64, 512, 512)`` crop
+    of phase 4's ground truth (about 240 cells, as there), blocks ``[32,
+    256, 256]``, halo ``[4, 16, 16]``.  The crop is a cut of depth: the
+    sequential host union-find scan over ~30 M edges per block sets its
+    time."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+    from cluster_tools_tpu_torch.models.unet import DEFAULT_OFFSETS
+
+    crop = np.ascontiguousarray(gt[:MWS_SHAPE[0], :MWS_SHAPE[1],
+                                   :MWS_SHAPE[2]])
+    store = os.path.join(root, "mws_main", "data.n5")
+    t0 = time.perf_counter()
+    write_dataset(store, "affs", affs_from_gt(crop, DEFAULT_OFFSETS),
+                  [1] + MWS_BLOCK)
+    log(f"mws-path setup_s {time.perf_counter() - t0} "
+        f"n_cells {len(np.unique(crop))}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    wall, seg, status = run_mws(os.path.join(root, "mws_main"), store,
+                                "affs", "seg", MWS_BLOCK, "cuda", True,
+                                halo=AFF_HALO)
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated()
+    blocking = Blocking(list(MWS_SHAPE), MWS_BLOCK)
+    edges = []
+    for b in range(blocking.n_blocks):
+        outer = blocking.get_block_with_halo(b, AFF_HALO).outer
+        shp = [e - s for s, e in zip(outer.begin, outer.end)]
+        edges.append(sum(int(np.prod([max(s - abs(o), 0)
+                                      for s, o in zip(shp, off)]))
+                         for off in DEFAULT_OFFSETS))
+    nvox = int(np.prod(MWS_SHAPE))
+    log(f"mws-path wall_s {wall} voxels_per_s {nvox / wall} "
+        f"n_blocks {blocking.n_blocks} edges_per_block {edges} "
+        f"peak_device_bytes {peak} kernel_launches {json.dumps(launches)}")
+    for task, st in status.items():
+        log(f"mws-path task {task} wall_s {st.get('wall_time')} "
+            f"stages {json.dumps(st.get('stages', {}))} "
+            f"stage_counts {json.dumps(st.get('stage_counts', {}))}")
+    sc = scores(seg, crop)
+    log(f"mws-path quality {json.dumps(sc)} n_segments {int(seg.max())} "
+        f"(gate: adapted Rand error < {RAND_GATE})")
+    if not np.isfinite(list(sc.values())).all() or \
+            sc["rand_error"] >= RAND_GATE:
+        raise AssertionError(f"MWS quality out of bounds: {sc}")
+    return {"wall_s": wall, "peak_device_bytes": peak, "quality": sc,
+            "edges_per_block": edges}
+
+
+
 def main() -> int:
     try:
         import torch
@@ -604,6 +1060,17 @@ def main() -> int:
         record, gt = main_path(root, FULL_SHAPE, BLOCK)
         split_card_vs_cpu(root, SMALL_SHAPE, SMALL_BLOCK)
         split = split_path(root, FULL_SHAPE, BLOCK, gt)
+        ckpt = make_checkpoint(root)
+        from cluster_tools_tpu_torch.utils.synthetic import (
+            as_uint8, synthetic_instance)
+
+        raw = as_uint8(synthetic_instance(INF_SHAPE, seed=3)[1])
+        unet_card_vs_cpu(ckpt, raw)
+        inf_store, _ = inference_card_vs_cpu(root, ckpt, raw)
+        mws_card_vs_cpu(root)
+        config5_chain(root, inf_store, ckpt)
+        inference_path(root, ckpt)
+        mws_path(root, gt)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -1,12 +1,15 @@
 """cluster_tools_tpu_torch — the PyTorch/CUDA port of cluster_tools_tpu.
 
-Runs the JAX package's multicut segmentation chains on an NVIDIA card —
-the split chain (``WatershedWorkflow`` -> ``MulticutSegmentationWorkflow``,
-its default) and the fused chain (``fused=True``): plain PyTorch for the
-device code, a hand-written CUDA kernel where the JAX package had a Pallas
-kernel (``csrc/``), and the same task configs, container formats and
-outputs.  Device tasks run on the global config's
-``"device"`` (default ``"cuda"``); the CPU is used only when asked for.
+Runs the JAX package's segmentation pipelines on an NVIDIA card: the
+multicut chains — the split chain (``WatershedWorkflow`` ->
+``MulticutSegmentationWorkflow``, its default) and the fused chain
+(``fused=True``) — and the affinity path, U-Net prediction
+(``InferenceTask``) feeding the mutex watershed (``MwsWorkflow``,
+``TwoPassMwsWorkflow``).  Plain PyTorch for the device code, a
+hand-written CUDA kernel where the JAX package had a Pallas kernel
+(``csrc/``), and the same task configs, container formats and outputs.
+Device tasks run on the global config's ``"device"`` (default
+``"cuda"``); the CPU is used only when asked for.
 """
 
 __version__ = "0.1.0"
@@ -15,11 +18,13 @@ from .core.workflow import Task, DummyTask, build
 from .core.runtime import BlockTask, FailedJobsError
 from .core.blocking import Blocking, blocks_in_volume, block_to_bb
 from .core.storage import file_reader
-from .workflows import (MulticutSegmentationWorkflow, ProblemWorkflow,
+from .workflows import (InferenceTask, MulticutSegmentationWorkflow,
+                        MwsWorkflow, ProblemWorkflow, TwoPassMwsWorkflow,
                         WatershedWorkflow)
 
 __all__ = [
     "Task", "DummyTask", "build", "BlockTask", "FailedJobsError",
     "Blocking", "blocks_in_volume", "block_to_bb", "file_reader",
-    "MulticutSegmentationWorkflow", "ProblemWorkflow", "WatershedWorkflow",
+    "InferenceTask", "MulticutSegmentationWorkflow", "MwsWorkflow",
+    "ProblemWorkflow", "TwoPassMwsWorkflow", "WatershedWorkflow",
 ]

@@ -43,6 +43,14 @@ def load() -> ctypes.CDLL:
         lib.mc_kl_refine.argtypes = [i64, i64, p_i64, p_f64, p_u64, i64,
                                      ctypes.c_double]
         lib.mc_kl_refine.restype = i64
+        p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        lib.mws_clustering.argtypes = [i64, i64, p_i64, p_f64, i64, p_i64,
+                                       p_f64, p_u64]
+        lib.mws_clustering.restype = i64
+        lib.mws_clustering_sorted.argtypes = [i64, i64, p_i32, p_i32, p_u8,
+                                              p_u64]
+        lib.mws_clustering_sorted.restype = i64
         _lib = lib
         return _lib
 
@@ -102,3 +110,41 @@ def multicut_objective(uv_ids: np.ndarray, costs: np.ndarray,
     uv = _as_uv(uv_ids)
     cut = labels[uv[:, 0]] != labels[uv[:, 1]]
     return float(np.asarray(costs)[cut].sum())
+
+
+# ---------------------------------------------------------------------------
+# mutex watershed
+# ---------------------------------------------------------------------------
+
+def mutex_clustering(n_nodes: int, uv_attractive: np.ndarray,
+                     w_attractive: np.ndarray, uv_mutex: np.ndarray,
+                     w_mutex: np.ndarray) -> np.ndarray:
+    """Kruskal-style mutex watershed over explicit edge lists
+    (affogato compute_mws_clustering equivalent): attractive and mutex
+    edges jointly in descending weight order (a stable sort, attractive
+    before mutex on ties)."""
+    uva = _as_uv(uv_attractive)
+    uvm = _as_uv(uv_mutex)
+    wa = np.ascontiguousarray(w_attractive, dtype=np.float64)
+    wm = np.ascontiguousarray(w_mutex, dtype=np.float64)
+    if len(wa) != len(uva) or len(wm) != len(uvm):
+        raise ValueError("one weight per edge needed")
+    out = np.empty(n_nodes, dtype=np.uint64)
+    load().mws_clustering(n_nodes, len(uva), uva, wa, len(uvm), uvm, wm, out)
+    return out
+
+
+def mutex_clustering_sorted(n_nodes: int, u: np.ndarray, v: np.ndarray,
+                            mutex_flag: np.ndarray) -> np.ndarray:
+    """Mutex-watershed union-find scan over a PRE-SORTED edge stream
+    (descending priority; the device extracted and sorted the edges).
+    ``u[i] < 0`` marks dropped edges; ``mutex_flag[i] != 0`` marks mutex
+    edges."""
+    u = np.ascontiguousarray(u, dtype=np.int32)
+    v = np.ascontiguousarray(v, dtype=np.int32)
+    mutex_flag = np.ascontiguousarray(mutex_flag, dtype=np.uint8)
+    if not len(u) == len(v) == len(mutex_flag):
+        raise ValueError("u, v and mutex_flag need one entry per edge")
+    out = np.empty(n_nodes, dtype=np.uint64)
+    load().mws_clustering_sorted(n_nodes, len(u), u, v, mutex_flag, out)
+    return out

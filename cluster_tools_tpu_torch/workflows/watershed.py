@@ -26,7 +26,7 @@ Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A9b):
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ from ..core.device import task_device
 from ..core.runtime import BlockTask
 from ..core.storage import file_reader
 from ..core.workflow import FileTarget, Task
+from .inference import load_with_halo
 from .relabel import RelabelWorkflow
 
 #: task-config options of the JAX package's watershed that are not ported
@@ -106,31 +107,6 @@ def read_outer_reflect(ds, begin, block_shape, halo) -> np.ndarray:
            for r, lo, hi in zip(ridx, los, his)):
         return data  # interior block: contiguous read, no gather
     return data[np.ix_(*[r - lo for r, lo in zip(ridx, los)])]
-
-
-def load_with_halo(ds, offset: Sequence[int], block_shape: Sequence[int],
-                   halo: Sequence[int], padding_mode: str = "reflect",
-                   channel_slice: Optional[slice] = None) -> np.ndarray:
-    """Read ``[offset-halo, offset+block_shape+halo)`` with out-of-volume
-    parts padded by ``np.pad(mode=padding_mode)`` (the JAX package's
-    ``workflows/inference.py`` loader; reference
-    inference/inference.py:202-232 ``_load_input``).  Always returns the
-    full outer shape."""
-    shape = ds.shape[-len(offset):]
-    starts = [off - ha for off, ha in zip(offset, halo)]
-    stops = [off + bs + ha for off, bs, ha in zip(offset, block_shape, halo)]
-    pad_left = tuple(max(0, -s) for s in starts)
-    pad_right = tuple(max(0, stop - sh) for stop, sh in zip(stops, shape))
-    bb = tuple(slice(max(0, s), min(sh, stop))
-               for s, stop, sh in zip(starts, stops, shape))
-    if channel_slice is not None:
-        bb = (channel_slice,) + bb
-        pad_left = (0,) + pad_left
-        pad_right = (0,) + pad_right
-    data = ds[bb]
-    if any(pad_left) or any(pad_right):
-        data = np.pad(data, tuple(zip(pad_left, pad_right)), mode=padding_mode)
-    return data
 
 
 def _read_padded_input(ds, block, cfg, halo, raw: bool = False) -> np.ndarray:

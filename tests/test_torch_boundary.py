@@ -88,6 +88,53 @@ def test_split_and_fused_chain_modules_are_held_to_the_rule():
         assert f"cluster_tools_tpu_torch.{name}" in mods, name
 
 
+def test_affinity_path_modules_are_held_to_the_rule():
+    """The modules of the affinity path (U-Net inference, mutex
+    watershed) are among those the two checks above walk."""
+    mods = set(_port_modules())
+    for name in ("models.unet", "models.checkpoint", "models.frameworks",
+                 "ops.mws", "workflows.inference",
+                 "workflows.mutex_watershed"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+
+
+def test_affinity_path_raises_without_a_card(tmp_path):
+    """InferenceTask and the mutex-watershed workflows default to the
+    card too, and raise on a host without one before any work runs."""
+    import numpy as np
+    import torch
+
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a host without a CUDA device")
+    path = str(tmp_path / "d.n5")
+    with ctp.file_reader(path) as f:
+        f.require_dataset("affs", shape=(3, 8, 8, 8), chunks=(1, 8, 8, 8),
+                          dtype="uint8")[:] = np.zeros((3, 8, 8, 8), "uint8")
+    cfg = str(tmp_path / "cfg")
+    ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8]})
+    common = dict(tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctp.InferenceTask(input_path=path, input_key="raw",
+                          output_path=path, output_key={"a": [0, 3]},
+                          checkpoint_path="ckpt", halo=[0, 0, 0], **common)
+    offsets = [[-1, 0, 0], [0, -1, 0], [0, 0, -1]]
+    for wf in (ctp.MwsWorkflow(input_path=path, input_key="affs",
+                               output_path=path, output_key="seg",
+                               offsets=offsets, **common),
+               ctp.TwoPassMwsWorkflow(input_path=path, input_key="affs",
+                                      output_path=path, output_key="seg",
+                                      offsets=offsets, halo=[1, 1, 1],
+                                      **common)):
+        assert wf.target == "gpu"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ctp.build([wf])
+    with ctp.file_reader(path, "r") as f:
+        assert "seg" not in f
+
+
 def test_default_device_is_the_card_and_raises_without_one(tmp_path):
     """The global config's device defaults to "cuda"; building the
     multicut workflow with it on this card-less host raises at DAG
