@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, then runs eight phases, each of which must pass:
+sources, then runs ten phases, each of which must pass:
 
 1. the build;
 2. the min-plus EDT kernel against its plain PyTorch version (in place
@@ -39,7 +39,25 @@ sources, then runs eight phases, each of which must pass:
    default-width U-Net on phase 4's volume, with the forward pass timed
    against its bound; (b) ``TwoPassMwsWorkflow`` at config 3's size,
    checked against the ground truth.  This path launches no kernel of
-   the port (no Pallas kernel lies on it in the JAX package).
+   the port (no Pallas kernel lies on it in the JAX package);
+9. connected components, stitching and evaluation, card against CPU on
+   small volumes: (a) hooking connected components (single, batched
+   with ragged blocks, the worst-case snake) and ``count_overlaps``,
+   identical, and one config-2 block timed at several convergence-check
+   intervals; (b) ``ThresholdedComponentsWorkflow`` on config 2's recipe
+   on the resident path, the per-block path and the per-block path with
+   a mask, identical labels and ``scipy.ndimage.label``'s partition; (c)
+   ``StitchingWorkflow``, ``SimpleStitchingWorkflow`` (its
+   ``StitchingAssignmentsWorkflow``), ``NodeLabelWorkflow`` and
+   ``EvaluationWorkflow``, identical outputs;
+10. at full size: (a) BASELINE config 2, ``ThresholdedComponentsWorkflow``
+   (the resident path) on its recipe at ``(125, 1250, 1250)`` float32 in
+   ``[32, 256, 256]`` blocks, held to ``scipy.ndimage.label``'s partition;
+   (b) ``EvaluationWorkflow`` of phase 6's segmentation against phase 4's
+   ground truth, held to phase 6's whole-volume scores; (c)
+   ``StitchingWorkflow`` on phase 4's ground truth relabelled per block,
+   card against CPU, held to the adapted Rand gate.  Phases 9-10 launch
+   no kernel of the port.
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -269,14 +287,21 @@ def write_volume(path: str, data: np.ndarray, block) -> None:
         ds[:] = data
 
 
-def _build(wf, tmp: str, store: str, ws_key: str, seg_key: str,
-           device: str):
-    """Build ``wf`` timed; returns (wall s, fragments, segmentation,
-    status JSONs by task)."""
+def read_status(tmp: str):
+    """Status JSONs of the tasks that ran in ``tmp``, by task."""
+    status = {}
+    for name in sorted(os.listdir(tmp)):
+        if name.endswith(".status"):
+            with open(os.path.join(tmp, name)) as fh:
+                st = json.load(fh)
+            status[st.get("task", name[:-len(".status")])] = st
+    return status
+
+
+def timed_build(wf, device: str) -> float:
     import torch
 
     import cluster_tools_tpu_torch as ctp
-    from cluster_tools_tpu_torch.core.storage import file_reader
 
     if device == "cuda":
         torch.cuda.synchronize()
@@ -284,16 +309,19 @@ def _build(wf, tmp: str, store: str, ws_key: str, seg_key: str,
     ctp.build([wf], raise_on_failure=True)
     if device == "cuda":
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def _build(wf, tmp: str, store: str, ws_key: str, seg_key: str,
+           device: str):
+    """Build ``wf`` timed; returns (wall s, fragments, segmentation,
+    status JSONs by task)."""
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    wall = timed_build(wf, device)
     with file_reader(store, "r") as f:
         ws, seg = f[ws_key][:], f[seg_key][:]
-    status = {}
-    for name in sorted(os.listdir(tmp)):
-        if name.endswith(".status"):
-            with open(os.path.join(tmp, name)) as fh:
-                st = json.load(fh)
-            status[st.get("task", name)] = st
-    return wall, ws, seg, status
+    return wall, ws, seg, read_status(tmp)
 
 
 def run_workflow(workdir: str, store: str, block, device: str):
@@ -446,31 +474,34 @@ def split_card_vs_cpu(root: str, shape, block):
     return results
 
 
-def same_partition(store: str, key_a: str, key_b: str) -> bool:
-    """True when two fragment volumes of ``store`` describe the same
-    partition: the voxelwise id maps a -> b and b -> a are both functions
-    (checked in z-slabs)."""
-    from cluster_tools_tpu_torch.core.storage import file_reader
+def _slabs(n: int, step: int = 25):
+    return [(z, min(z + step, n)) for z in range(0, n, step)]
 
-    with file_reader(store, "r") as f:
-        da, db = f[key_a], f[key_b]
-        n = da.shape[0]
-        slabs = [(z, min(z + 25, n)) for z in range(0, n, 25)]
-        max_a = max_b = 0
-        for z0, z1 in slabs:
-            max_a = max(max_a, int(da[z0:z1].max()))
-            max_b = max(max_b, int(db[z0:z1].max()))
-        ab = np.full(max_a + 1, -1, "int64")
-        ba = np.full(max_b + 1, -1, "int64")
-        for z0, z1 in slabs:
-            a = da[z0:z1].ravel().astype("int64")
-            b = db[z0:z1].ravel().astype("int64")
-            for lut, x, y in ((ab, a, b), (ba, b, a)):
-                new = lut[x] < 0
-                lut[x[new]] = y[new]
-                if (lut[x] != y).any():
-                    return False
-    return True
+
+def id_map(da, db):
+    """The voxelwise id map a -> b of two label volumes (arrays or
+    datasets, read in z-slabs) as a lookup table (-1 for ids absent from
+    a), or None when it is not a function: some id of a meets two ids of
+    b."""
+    max_a = max(int(da[z0:z1].max()) for z0, z1 in _slabs(da.shape[0]))
+    lut = np.full(max_a + 1, -1, "int64")
+    for z0, z1 in _slabs(da.shape[0]):
+        x = da[z0:z1].ravel().astype("int64")
+        y = db[z0:z1].ravel().astype("int64")
+        new = lut[x] < 0
+        lut[x[new]] = y[new]
+        if (lut[x] != y).any():
+            return None
+    return lut
+
+
+def same_partition(da, db) -> bool:
+    """True when two label volumes describe the same partition with the
+    same background: the voxelwise id maps a -> b and b -> a are both
+    functions, and neither sends 0 to another id."""
+    ab, ba = id_map(da, db), id_map(db, da)
+    return ab is not None and ba is not None and ab[0] in (-1, 0) and \
+        ba[0] in (-1, 0)
 
 
 def split_path(root: str, shape, block, gt):
@@ -506,7 +537,10 @@ def split_path(root: str, shape, block, gt):
         raise AssertionError(f"split segmentation quality out of bounds: "
                              f"{sc}")
     t0 = time.perf_counter()
-    same = same_partition(store, "ws_split", "ws")
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    with file_reader(store, "r") as f:
+        same = same_partition(f["ws_split"], f["ws"])
     log(f"split-path fragments same partition as fused: {same} "
         f"(check_s {time.perf_counter() - t0})")
     if not same:
@@ -788,8 +822,6 @@ def run_mws(workdir: str, store: str, in_key: str, out_key: str, block,
     ``device`` with the task config's ``impl``, target ``threads`` (the
     jobs' host scans overlap); returns (wall s, labels, status JSONs by
     task)."""
-    import torch
-
     import cluster_tools_tpu_torch as ctp
     from cluster_tools_tpu_torch.core.config import ConfigDir
     from cluster_tools_tpu_torch.models.unet import DEFAULT_OFFSETS
@@ -806,18 +838,8 @@ def run_mws(workdir: str, store: str, in_key: str, out_key: str, block,
                 offsets=[list(o) for o in DEFAULT_OFFSETS], halo=halo,
                 tmp_folder=tmp, config_dir=cfg_dir,
                 max_jobs=os.cpu_count() or 1, target="threads")
-    if device == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ctp.build([wf], raise_on_failure=True)
-    wall = time.perf_counter() - t0
-    status = {}
-    for name in sorted(os.listdir(tmp)):
-        if name.endswith(".status"):
-            with open(os.path.join(tmp, name)) as fh:
-                st = json.load(fh)
-            status[st.get("task", name[:-len(".status")])] = st
-    return wall, read_dataset(store, out_key), status
+    wall = timed_build(wf, device)
+    return wall, read_dataset(store, out_key), read_status(tmp)
 
 
 def mws_card_vs_cpu(root: str):
@@ -1019,6 +1041,415 @@ def mws_path(root: str, gt: np.ndarray):
             "edges_per_block": edges}
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: connected components (BASELINE config 2), stitching,
+# node labels and evaluation
+# ---------------------------------------------------------------------------
+
+#: config 2's block shape and threshold (bench_configs.py:208-237)
+CC_BLOCK = [32, 256, 256]
+CC_THRESHOLD = 0.6
+#: the smoothing of config 2's random field (bench_configs.py:44-53)
+CC_SIGMA = 4.0
+#: chunks of phase 10c's per-block relabelled volume: a face reads two
+#: planes, so thin chunks keep the reads near the planes
+STITCH_CHUNKS = [10, 128, 128]
+#: phase 10c's gate (tests/test_stitching.py: adapted Rand error)
+STITCH_RAND_GATE = 0.05
+#: phase 10b: blockwise evaluation against the whole-volume scores
+SCORE_TOL = 1e-9
+#: hooking convergence-check intervals timed in phase 9a
+CHECK_INTERVALS = (1, 2, 4, 8)
+
+
+def blob_volume(shape, seed: int = 0, device: str = "cuda") -> np.ndarray:
+    """Config 2's input (bench_configs.py:44-53): a uniform random field
+    (numpy, ``seed``) smoothed with sigma 4 — here by the port's separable
+    float32 Gaussian on ``device`` — and normalized to [0, 1], float32."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops.filters import gaussian
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.rand(*shape).astype("float32")).to(device)
+    x = gaussian(x, CC_SIGMA)
+    lo, hi = float(x.min()), float(x.max())
+    return ((x - lo) / max(hi - lo, 1e-6)).cpu().numpy()
+
+
+def config_dir(workdir: str, block, device: str, task_configs=None) -> str:
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+
+    cfg = os.path.join(workdir, "configs")
+    ConfigDir(cfg).write_global_config({"block_shape": list(block),
+                                        "device": device})
+    for name, conf in (task_configs or {}).items():
+        ConfigDir(cfg).write_task_config(name, conf)
+    return cfg
+
+
+def run_cc(workdir: str, store: str, in_key: str, out_key: str, block,
+           device: str, target: str, mask_key: str = ""):
+    """``ThresholdedComponentsWorkflow`` at config 2's threshold on
+    ``device``; returns (wall s, labels, maxId, status JSONs by task)."""
+    import cluster_tools_tpu_torch as ctp
+
+    tmp = os.path.join(workdir, "tmp")
+    wf = ctp.ThresholdedComponentsWorkflow(
+        input_path=store, input_key=in_key, output_path=store,
+        output_key=out_key, threshold=CC_THRESHOLD, tmp_folder=tmp,
+        config_dir=config_dir(workdir, block, device),
+        max_jobs=os.cpu_count() or 1, target=target,
+        mask_path=store if mask_key else "", mask_key=mask_key)
+    wall = timed_build(wf, device)
+    with ctp.file_reader(store, "r") as f:
+        labels, max_id = f[out_key][:], int(f[out_key].attrs["maxId"])
+    return wall, labels, max_id, read_status(tmp)
+
+
+def snake(n: int) -> np.ndarray:
+    """A one-voxel-wide serpentine over an ``n x n`` plane: one component
+    whose graph diameter is about half the voxel count."""
+    mask = np.zeros((n, n), bool)
+    mask[::2, :] = True
+    mask[1::4, -1] = True
+    mask[3::4, 0] = True
+    return mask
+
+
+def ops_card_vs_cpu(vol: np.ndarray):
+    """Phase 9a: hooking connected components (single and batched, with
+    ragged blocks) and ``count_overlaps`` on the card and on the CPU,
+    identical; one block of config 2 timed at several convergence-check
+    intervals."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops import components as cc
+    from cluster_tools_tpu_torch.ops.overlaps import count_overlaps
+
+    block = vol[:CC_BLOCK[0], :CC_BLOCK[1], :CC_BLOCK[2]]
+    masks = {"config2 block c1": (block > CC_THRESHOLD, 1),
+             "config2 block c3": (block > CC_THRESHOLD, 3),
+             "config2 block less c1": (block < 0.45, 1),
+             "snake 255": (snake(255), 1)}
+    for name, (m, conn) in masks.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            out[dev], bodies = cc.connected_components(
+                torch.from_numpy(m).to(dev), conn, return_bodies=True)
+        same = torch.equal(out["cuda"].cpu(), out["cpu"])
+        log(f"cc-ops {name}: shape {list(m.shape)} bodies {bodies} "
+            f"n_components {len(torch.unique(out['cpu'])) - 1} "
+            f"identical {same}")
+        if not same:
+            raise AssertionError(f"hooking CC {name}: card != CPU")
+    ragged = np.zeros((4, 16, 64, 64), bool)
+    for i, ext in enumerate([(16, 64, 64), (16, 20, 64), (5, 64, 64),
+                             (5, 20, 9)]):
+        sl = (i,) + tuple(slice(0, e) for e in ext)
+        ragged[sl] = vol[:ext[0], :ext[1], :ext[2]] > CC_THRESHOLD
+    got = cc.connected_components_batched(torch.from_numpy(ragged).cuda())
+    want = cc.connected_components_batched(torch.from_numpy(ragged))
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("batched hooking CC: card != CPU")
+    a = (block * 40).astype("uint64") + np.uint64(2 ** 33)
+    b = cc.connected_components(torch.from_numpy(
+        block > CC_THRESHOLD)).numpy().astype("uint64")
+    for x, y in zip(count_overlaps(a, b, "cuda"),
+                    count_overlaps(a, b, "cpu")):
+        if not np.array_equal(x, y):
+            raise AssertionError("count_overlaps: card != CPU")
+    log("cc-ops batched (ragged) and count_overlaps: card == CPU")
+
+    m = torch.from_numpy(block > CC_THRESHOLD).cuda()
+    default = cc.HOOK_CHECK_EVERY
+    rows = []
+    try:
+        for every in CHECK_INTERVALS:
+            cc.HOOK_CHECK_EVERY = every
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, bodies = cc.connected_components(m, return_bodies=True)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append({"check_every": every, "bodies": bodies,
+                         "ms": float(np.median(ms))})
+    finally:
+        cc.HOOK_CHECK_EVERY = default
+    log(f"cc-ops check interval on one {CC_BLOCK} block "
+        f"{json.dumps(rows)} (default {default})")
+    return rows
+
+
+def cc_card_vs_cpu(root: str, vol: np.ndarray, shape, block):
+    """Phase 9b: ``ThresholdedComponentsWorkflow`` on config 2's recipe
+    on the resident path (target ``gpu``; on the CPU through
+    ``CTT_FORCE_RESIDENT=1``), the per-block path (target ``threads``) and
+    the per-block path with a mask, on the card and on the CPU: the same
+    labels, and the partition of ``scipy.ndimage.label``."""
+    from scipy import ndimage
+
+    wd = os.path.join(root, "cc_small")
+    store = os.path.join(wd, "data.n5")
+    write_dataset(store, "raw", vol, block)
+    mask = np.ones(shape, "uint8")
+    mask[:, :, :shape[2] // 5] = 0
+    mask[shape[0] // 2:, shape[1] // 2:, shape[2] // 2:] = 0
+    write_dataset(store, "mask", mask, block)
+    out = {}
+    for path, target, masked in (("resident", "gpu", False),
+                                 ("per_block", "threads", False),
+                                 ("per_block_mask", "gpu", True)):
+        ref, n = ndimage.label((vol > CC_THRESHOLD) & (mask > 0) if masked
+                               else vol > CC_THRESHOLD)
+        labels = {}
+        for dev in ("cuda", "cpu"):
+            tag = f"{path}_{dev}"
+            forced = path == "resident" and dev == "cpu"
+            os.environ["CTT_FORCE_RESIDENT"] = "1" if forced else "0"
+            try:
+                wall, labels[dev], max_id, status = run_cc(
+                    os.path.join(wd, tag), store, "raw", f"cc_{tag}", block,
+                    dev, target, "mask" if masked else "")
+            finally:
+                os.environ.pop("CTT_FORCE_RESIDENT", None)
+            resident = "merge_offsets" not in status
+            log(f"cc-small {tag}: shape {list(shape)} wall_s {wall} "
+                f"maxId {max_id} resident {resident} cc_bodies "
+                f"{status['block_components']['stage_counts'].get('cc-bodies')}")
+            if max_id != n or resident != (path == "resident"):
+                raise AssertionError(f"cc-small {tag}: maxId {max_id}, "
+                                     f"scipy {n}, resident {resident}")
+        same = bool(np.array_equal(labels["cuda"], labels["cpu"]))
+        part = same_partition(labels["cuda"], ref)
+        log(f"cc-small {path}: card == CPU {same}, partition == scipy "
+            f"{part}, n_components {n}")
+        if not (same and part):
+            raise AssertionError(f"cc-small {path}: labels differ")
+        out[path] = n
+    return out
+
+
+def split_per_block(gt: np.ndarray, block, device: str = "cuda"):
+    """``gt`` relabelled per block (every block its own consecutive ids,
+    the recipe of tests/test_stitching.py:14-35), on ``device``."""
+    import torch
+
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+
+    blocking = Blocking(list(gt.shape), list(block))
+    split = np.zeros(gt.shape, "uint64")
+    offset = 0
+    for bid in range(blocking.n_blocks):
+        bb = blocking.get_block(bid).bb
+        uniq, inv = torch.unique(torch.from_numpy(
+            gt[bb].astype("int64")).to(device), return_inverse=True)
+        split[bb] = (inv + 1 + offset).cpu().numpy()
+        offset += len(uniq)
+    return split
+
+
+def stitch_eval_card_vs_cpu(root: str, gt: np.ndarray, bnd: np.ndarray,
+                            block):
+    """Phase 9c: ``StitchingWorkflow``, ``SimpleStitchingWorkflow`` (its
+    ``StitchingAssignmentsWorkflow`` over a feature-only problem),
+    ``NodeLabelWorkflow`` and ``EvaluationWorkflow`` on the card and on
+    the CPU: identical outputs."""
+    import cluster_tools_tpu_torch as ctp
+
+    wd = os.path.join(root, "stitch_small")
+    store = os.path.join(wd, "data.n5")
+    split = split_per_block(gt, block)
+    write_dataset(store, "split", split, block)
+    write_dataset(store, "gt", gt, block)
+    write_dataset(store, "bnd", bnd, block)
+    with ctp.file_reader(store) as f:
+        f["split"].attrs["maxId"] = int(split.max())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        w = os.path.join(wd, dev)
+        common = dict(tmp_folder=os.path.join(w, "tmp"),
+                      config_dir=config_dir(w, block, dev, {
+                          "stitch_faces": {"overlap_threshold": 0.5}}),
+                      max_jobs=os.cpu_count() or 1, target="gpu")
+        stitch = ctp.StitchingWorkflow(
+            labels_path=store, labels_key="split", output_path=store,
+            output_key=f"stitched_{dev}", **common)
+        problem = os.path.join(w, "problem.n5")
+        simple = ctp.SimpleStitchingWorkflow(
+            input_path=store, input_key="bnd", ws_path=store,
+            ws_key="split", problem_path=problem, output_path=store,
+            output_key=f"simple_{dev}", dependency=stitch, **common)
+        nodes = ctp.NodeLabelWorkflow(
+            ws_path=store, ws_key="split", input_path=store,
+            input_key="gt", output_path=store, output_key=f"nodes_{dev}",
+            dependency=simple, **common)
+        scores_path = os.path.join(w, "scores.json")
+        ev = ctp.EvaluationWorkflow(
+            seg_path=store, seg_key=f"stitched_{dev}", gt_path=store,
+            gt_key="gt", out_path=scores_path, compute_object_vi=True,
+            dependency=nodes, **common)
+        wall = timed_build(ev, dev)
+        with ctp.file_reader(store, "r") as f:
+            vols = [f[f"{k}_{dev}"][:] for k in ("stitched", "simple",
+                                                 "nodes")]
+        with ctp.file_reader(problem, "r") as f:
+            vols.append(f["stitch_assignments"][:])
+        with open(scores_path) as fh:
+            out[dev] = (vols, json.load(fh))
+        log(f"stitch-small {dev}: wall_s {wall} n_stitched "
+            f"{len(np.unique(vols[0]))} n_simple {len(np.unique(vols[1]))} "
+            f"scores {json.dumps({k: v for k, v in out[dev][1].items() if k != 'object-vi'})}")
+    same = [bool(np.array_equal(a, b))
+            for a, b in zip(out["cuda"][0], out["cpu"][0])]
+    same.append(out["cuda"][1] == out["cpu"][1])
+    log(f"stitch-small card == CPU (stitched, simple, node labels, "
+        f"simple assignments, scores): {same}")
+    if not all(same):
+        raise AssertionError("stitching / evaluation: card != CPU")
+    return same
+
+
+def cc_path(root: str):
+    """Phase 10a: BASELINE config 2 at the size of one CREMI sample —
+    ``ThresholdedComponentsWorkflow(target="gpu")`` (the resident path) on
+    config 2's recipe at ``(125, 1250, 1250)`` float32, blocks ``[32, 256,
+    256]`` (100 blocks), threshold 0.6; the partition held to
+    ``scipy.ndimage.label``'s."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+    from scipy import ndimage
+
+    t0 = time.perf_counter()
+    vol = blob_volume(FULL_SHAPE, seed=0)
+    wd = os.path.join(root, "cc_main")
+    store = os.path.join(wd, "data.n5")
+    write_dataset(store, "raw", vol, CC_BLOCK)
+    log(f"cc-path setup_s {time.perf_counter() - t0} shape "
+        f"{list(FULL_SHAPE)} block {CC_BLOCK}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    wall, labels, max_id, status = run_cc(wd, store, "raw", "cc", CC_BLOCK,
+                                          "cuda", "gpu")
+    launches = kernels.counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_blocks = Blocking(list(FULL_SHAPE), CC_BLOCK).n_blocks
+    nvox = int(np.prod(FULL_SHAPE))
+    log(f"cc-path wall_s {wall} voxels_per_s {nvox / wall} n_blocks "
+        f"{n_blocks} n_components {max_id} peak_device_bytes {peak} "
+        f"kernel_launches {json.dumps(launches)}")
+    for task, st in status.items():
+        log(f"cc-path task {task} wall_s {st.get('wall_time')} "
+            f"stages {json.dumps(st.get('stages', {}))} "
+            f"stage_counts {json.dumps(st.get('stage_counts', {}))}")
+    t0 = time.perf_counter()
+    ref, n = ndimage.label(vol > CC_THRESHOLD)
+    del vol
+    part = same_partition(labels, ref)
+    log(f"cc-path partition == scipy {part} n_scipy {n} "
+        f"(check_s {time.perf_counter() - t0})")
+    if "merge_offsets" in status or max_id != n or not part:
+        raise AssertionError("cc path: not the resident path, or the "
+                             "partition differs from scipy's")
+    return {"wall_s": wall, "n_components": max_id,
+            "peak_device_bytes": peak}
+
+
+def eval_path(root: str, gt: np.ndarray, split_quality):
+    """Phase 10b: ``EvaluationWorkflow`` of phase 6's segmentation against
+    phase 4's ground truth (the main store, blocks ``[50, 512, 512]``,
+    target ``threads``: the jobs' host densification overlaps), held to
+    the scores phase 6 computed on the whole volumes."""
+    import cluster_tools_tpu_torch as ctp
+
+    store = os.path.join(root, "main", "data.n5")
+    write_dataset(store, "gt", gt, BLOCK)
+    wd = os.path.join(root, "eval_main")
+    out_path = os.path.join(wd, "scores.json")
+    wf = ctp.EvaluationWorkflow(
+        seg_path=store, seg_key="seg_split", gt_path=store, gt_key="gt",
+        out_path=out_path, tmp_folder=os.path.join(wd, "tmp"),
+        config_dir=config_dir(wd, BLOCK, "cuda"),
+        max_jobs=os.cpu_count() or 1, target="threads")
+    wall = timed_build(wf, "cuda")
+    with open(out_path) as fh:
+        got = json.load(fh)
+    status = read_status(os.path.join(wd, "tmp"))
+    log(f"eval-path wall_s {wall} scores {json.dumps(got)}")
+    for task, st in status.items():
+        log(f"eval-path task {task} wall_s {st.get('wall_time')} "
+            f"stages {json.dumps(st.get('stages', {}))}")
+    pairs = {"voi_split": "vi-split", "voi_merge": "vi-merge",
+             "rand_error": "adapted-rand-error", "cremi": "cremi-score"}
+    diffs = {k: abs(got[v] - split_quality[k]) for k, v in pairs.items()}
+    log(f"eval-path against phase 6's scores: {json.dumps(diffs)} "
+        f"(gate {SCORE_TOL})")
+    if not all(d <= SCORE_TOL for d in diffs.values()):
+        raise AssertionError(f"blockwise evaluation differs: {diffs}")
+    return {"wall_s": wall, "diffs": diffs}
+
+
+def stitch_path(root: str, gt: np.ndarray):
+    """Phase 10c: ``StitchingWorkflow`` (overlap threshold 0.5) on phase
+    4's ground truth relabelled per block of ``[50, 512, 512]``, on the
+    card and on the CPU: identical labels, and an adapted Rand error
+    below 0.05 (the JAX package's test gate).  The ground-truth cells
+    that one stitched id covers are counted, not gated: the JAX package's
+    mutual-best-overlap rule merges two cells whose slivers meet across a
+    face (``tests/test_torch_stitching.py``
+    ``::test_false_merges_are_the_reference_rule``)."""
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.utils.validation import (
+        ContingencyTable, cremi_score_from_table)
+
+    t0 = time.perf_counter()
+    wd = os.path.join(root, "stitch_main")
+    store = os.path.join(wd, "data.n5")
+    split = split_per_block(gt, BLOCK)
+    write_dataset(store, "split", split, STITCH_CHUNKS)
+    n_split = int(split.max())
+    with ctp.file_reader(store) as f:
+        f["split"].attrs["maxId"] = n_split
+    del split
+    log(f"stitch-path setup_s {time.perf_counter() - t0} n_split {n_split}")
+    out, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        w = os.path.join(wd, dev)
+        tmp = os.path.join(w, "tmp")
+        wf = ctp.StitchingWorkflow(
+            labels_path=store, labels_key="split", output_path=store,
+            output_key=f"stitched_{dev}", tmp_folder=tmp,
+            config_dir=config_dir(w, BLOCK, dev, {
+                "stitch_faces": {"overlap_threshold": 0.5}}),
+            max_jobs=os.cpu_count() or 1, target="gpu")
+        walls[dev] = timed_build(wf, dev)
+        with ctp.file_reader(store, "r") as f:
+            out[dev] = f[f"stitched_{dev}"][:]
+        for task, st in read_status(tmp).items():
+            log(f"stitch-path {dev} task {task} wall_s "
+                f"{st.get('wall_time')} stages "
+                f"{json.dumps(st.get('stages', {}))}")
+    identical = bool(np.array_equal(out["cuda"], out["cpu"]))
+    table = ContingencyTable.from_arrays_chunked(gt, out["cuda"])
+    vis, vim, are, cremi = cremi_score_from_table(table)
+    _, n_cells = np.unique(table.p_ids[:, 1], return_counts=True)
+    quality = {"voi_split": vis, "voi_merge": vim, "rand_error": are,
+               "cremi": cremi}
+    wall, wall_cpu = walls["cuda"], walls["cpu"]
+    log(f"stitch-path wall_s {wall} (cpu {wall_cpu}) "
+        f"card == CPU {identical} n_stitched {len(table.b_ids)} n_cells "
+        f"{len(table.a_ids)} ids_covering_several_cells "
+        f"{int((n_cells > 1).sum())} quality {json.dumps(quality)} "
+        f"(gate: adapted Rand error < {STITCH_RAND_GATE})")
+    if not identical or are >= STITCH_RAND_GATE:
+        raise AssertionError("stitching path: card != CPU or adapted Rand "
+                             f"error {are} out of bounds")
+    return {"wall_s": wall, "rand_error": are}
+
 
 def main() -> int:
     try:
@@ -1071,6 +1502,20 @@ def main() -> int:
         config5_chain(root, inf_store, ckpt)
         inference_path(root, ckpt)
         mws_path(root, gt)
+        # phases 9-10 lie on no kernel of the port
+        kernels.reset_counts()
+        small = blob_volume(SMALL_SHAPE, seed=1)
+        ops_card_vs_cpu(small)
+        cc_card_vs_cpu(root, small, SMALL_SHAPE, SMALL_BLOCK)
+        gt_small, bnd_small = synthetic_instance(SMALL_SHAPE, seed=2)
+        stitch_eval_card_vs_cpu(root, gt_small, bnd_small, SMALL_BLOCK)
+        cc_path(root)
+        eval_path(root, gt, split["quality"])
+        stitch_path(root, gt)
+        late = kernels.counts()
+        log(f"phases 9-10 kernel launches {json.dumps(late)}")
+        if late["minplus"] != 0:
+            raise AssertionError("phases 9-10 launched the min-plus kernel")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

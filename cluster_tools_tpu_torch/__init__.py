@@ -5,7 +5,12 @@ multicut chains — the split chain (``WatershedWorkflow`` ->
 ``MulticutSegmentationWorkflow``, its default) and the fused chain
 (``fused=True``) — and the affinity path, U-Net prediction
 (``InferenceTask``) feeding the mutex watershed (``MwsWorkflow``,
-``TwoPassMwsWorkflow``).  Plain PyTorch for the device code, a
+``TwoPassMwsWorkflow``); connected components of a thresholded map
+with block stitching (``ThresholdedComponentsWorkflow``), overlap and
+problem-based stitching (``StitchingWorkflow``,
+``StitchingAssignmentsWorkflow``, ``SimpleStitchingWorkflow``), node
+labels and evaluation (``NodeLabelWorkflow``, ``EvaluationWorkflow``).
+Plain PyTorch for the device code, a
 hand-written CUDA kernel where the JAX package had a Pallas kernel
 (``csrc/``), and the same task configs, container formats and outputs.
 Device tasks run on the global config's ``"device"`` (default
@@ -18,13 +23,20 @@ from .core.workflow import Task, DummyTask, build
 from .core.runtime import BlockTask, FailedJobsError
 from .core.blocking import Blocking, blocks_in_volume, block_to_bb
 from .core.storage import file_reader
-from .workflows import (InferenceTask, MulticutSegmentationWorkflow,
-                        MwsWorkflow, ProblemWorkflow, TwoPassMwsWorkflow,
+from .workflows import (EvaluationWorkflow, InferenceTask,
+                        MulticutSegmentationWorkflow, MwsWorkflow,
+                        NodeLabelWorkflow, ProblemWorkflow,
+                        SimpleStitchingWorkflow,
+                        StitchingAssignmentsWorkflow, StitchingWorkflow,
+                        ThresholdedComponentsWorkflow, TwoPassMwsWorkflow,
                         WatershedWorkflow)
 
 __all__ = [
     "Task", "DummyTask", "build", "BlockTask", "FailedJobsError",
     "Blocking", "blocks_in_volume", "block_to_bb", "file_reader",
-    "InferenceTask", "MulticutSegmentationWorkflow", "MwsWorkflow",
-    "ProblemWorkflow", "TwoPassMwsWorkflow", "WatershedWorkflow",
+    "EvaluationWorkflow", "InferenceTask", "MulticutSegmentationWorkflow",
+    "MwsWorkflow", "NodeLabelWorkflow", "ProblemWorkflow",
+    "SimpleStitchingWorkflow", "StitchingAssignmentsWorkflow",
+    "StitchingWorkflow", "ThresholdedComponentsWorkflow",
+    "TwoPassMwsWorkflow", "WatershedWorkflow",
 ]

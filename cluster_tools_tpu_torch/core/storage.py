@@ -385,6 +385,9 @@ class Dataset:
         bb = self._chunk_bb(chunk_id)
         self[bb] = np.asarray(data).reshape([s.stop - s.start for s in bb])
 
+    def find_max(self) -> float:
+        return float(np.max(self[...]))
+
 
 # ---------------------------------------------------------------------------
 # containers

@@ -1,16 +1,25 @@
-"""Connected components via label propagation on the card.
+"""Connected components on the card: union-find hooking with pointer
+jumping, and label propagation.
 
-Port of cluster_tools_tpu/ops/components.py, ``method="propagation"`` (the
-method the fused chain uses for seed clusters): every foreground voxel
-starts as its own label (its linear index) and repeatedly takes the
-minimum over its neighborhood until nothing changes.  Labels are returned
-as root-voxel linear indices + 1 (0 = background), identical to the JAX
-package's.
+Port of cluster_tools_tpu/ops/components.py.  Every foreground voxel
+starts as its own parent (its linear index).  ``method="hooking"`` (the
+default, as in the JAX package) takes the minimum parent over the
+neighborhood, scatter-min "hooks" it onto the current root and
+compresses paths by two pointer jumps; ``method="propagation"`` (the
+method the multicut chains use for seed clusters) repeatedly takes the
+neighborhood minimum.  Both converge to the component's minimum linear
+index; labels are returned as that index + 1 (0 = background), identical
+to the JAX package's.
 
-The JAX package checks convergence after every 4-sweep body inside a
+The JAX package checks convergence after every body inside a
 ``while_loop``; here each check is a host sync, so the loop runs several
 bodies between checks.  A converged state stays converged, so the labels
-are identical; the iteration bound counts bodies exactly as there.
+are identical.  Propagation's iteration bound counts bodies exactly as
+there; hooking has no bound, as there.
+
+``connected_components_batched`` labels a leading batch axis of equally
+shaped blocks, each with its own linear indices (the JAX package's
+``vmap``).
 """
 
 from __future__ import annotations
@@ -21,8 +30,10 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-#: 4-sweep bodies run between two convergence checks (host syncs)
+#: propagation: 4-sweep bodies run between two convergence checks
 CHECK_EVERY = 8
+#: hooking: bodies run between two convergence checks
+HOOK_CHECK_EVERY = 2
 
 
 def _neighbor_offsets(ndim: int,
@@ -54,11 +65,12 @@ def _shifted(arr: torch.Tensor, offset: Sequence[int], fill) -> torch.Tensor:
 
 
 def _box_min(grid: torch.Tensor, fill) -> torch.Tensor:
-    """Minimum over the full 3^ndim neighborhood (center included), with
-    out-of-volume neighbors reading ``fill`` — separable, one pass per
-    axis, exactly the minimum over all ``ndim``-connectivity offsets."""
+    """Minimum over the full 3^ndim spatial neighborhood (center
+    included) of a batch ``(B, *spatial)``, with out-of-volume neighbors
+    reading ``fill`` — separable, one pass per spatial axis, exactly the
+    minimum over all ``ndim``-connectivity offsets."""
     m = grid
-    for ax in range(grid.dim()):
+    for ax in range(1, grid.dim()):
         off = [0] * grid.dim()
         off[ax] = 1
         lo = _shifted(m, off, fill)
@@ -68,47 +80,122 @@ def _box_min(grid: torch.Tensor, fill) -> torch.Tensor:
     return m
 
 
-def connected_components(mask: torch.Tensor, connectivity: int = 1,
-                         max_iter: int = 0,
-                         method: str = "propagation") -> torch.Tensor:
-    """Label connected components of a boolean mask.
-
-    Returns an int32 tensor: 0 for background, ``root_linear_index + 1``
-    for foreground (the minimum linear index of the component).
-    ``connectivity`` follows the scipy/skimage convention (1 = faces,
-    ndim = full).  ``max_iter=0`` bounds the loop at ``n//4 + 2`` bodies
-    (the loop exits early on convergence)."""
-    if method != "propagation":
-        raise NotImplementedError(
-            f"method {method!r}: only 'propagation' is ported")
-    shape = mask.shape
-    n = int(np.prod(shape))
+def _label(masks: torch.Tensor, connectivity: int, max_iter: int,
+           method: str) -> Tuple[torch.Tensor, int]:
+    """Labels of a batch ``(B, *spatial)`` of boolean masks, each block
+    with its own linear indices; returns ``(labels int32, bodies run)``."""
+    if method not in ("hooking", "propagation"):
+        raise ValueError(f"unknown method {method!r}; "
+                         "choose 'hooking' or 'propagation'")
+    shape = masks.shape
+    nb, ndim = int(shape[0]), masks.dim() - 1
+    n = int(np.prod(shape[1:]))
     sentinel = n
-    mask = mask.to(torch.bool)
-    full = connectivity >= mask.dim()
-    offsets = _neighbor_offsets(mask.dim(), connectivity)
-    if max_iter == 0:
-        max_iter = max(n // 4 + 2, 16)
-    fg = mask.reshape(-1)
-    p = torch.arange(n, dtype=torch.int32, device=mask.device)
+    masks = masks.to(torch.bool)
+    full = connectivity >= ndim
+    offsets = [(0,) + o for o in _neighbor_offsets(ndim, connectivity)]
+    fg = masks.reshape(nb, n)
+    p = torch.arange(n, dtype=torch.int32,
+                     device=masks.device).repeat(nb, 1)
 
     def neighbor_min(p):
-        grid = torch.where(mask, p.reshape(shape), sentinel)
+        grid = torch.where(masks, p.reshape(shape), sentinel)
         if full:
             m = _box_min(grid, sentinel)
         else:
             m = grid
             for off in offsets:
                 m = torch.minimum(m, _shifted(grid, off, sentinel))
-        return torch.where(fg, m.reshape(-1), p)
+        return torch.where(fg, m.reshape(nb, n), p)
 
-    it = 0
-    while it < max_iter:
-        for _ in range(min(CHECK_EVERY, max_iter - it)):
-            prev = p
-            for _ in range(4):
-                p = neighbor_min(p)
-            it += 1
-        if not bool((p != prev).any()):
-            break
-    return torch.where(fg, p + 1, 0).reshape(shape).to(torch.int32)
+    bodies = 0
+    if method == "propagation":
+        if max_iter == 0:
+            max_iter = max(n // 4 + 2, 16)
+        while bodies < max_iter:
+            for _ in range(min(CHECK_EVERY, max_iter - bodies)):
+                prev = p
+                for _ in range(4):
+                    p = neighbor_min(p)
+                bodies += 1
+            if not bool((p != prev).any()):
+                break
+    else:
+        # block b's parents index its own row of the flattened batch
+        base = (torch.arange(nb, device=masks.device,
+                             dtype=torch.int64) * n)[:, None]
+
+        def body(p):
+            m = neighbor_min(p)
+            # hook the improved root onto the current root (p.at[p].min(m)),
+            # then compress by two pointer jumps
+            p2 = p.reshape(-1).clone()
+            p2.scatter_reduce_(0, (p.long() + base).reshape(-1),
+                               m.reshape(-1), reduce="amin",
+                               include_self=True)
+            p2 = p2.reshape(nb, n)
+            p2 = torch.gather(p2, 1, p2.long())
+            return torch.gather(p2, 1, p2.long())
+
+        while True:
+            for _ in range(HOOK_CHECK_EVERY):
+                prev = p
+                p = body(p)
+                bodies += 1
+            if not bool((p != prev).any()):
+                break
+    return torch.where(fg, p + 1, 0).reshape(shape).to(torch.int32), bodies
+
+
+def connected_components(mask: torch.Tensor, connectivity: int = 1,
+                         max_iter: int = 0, method: str = "hooking",
+                         return_bodies: bool = False):
+    """Label connected components of a boolean mask.
+
+    Returns an int32 tensor: 0 for background, ``root_linear_index + 1``
+    for foreground (the minimum linear index of the component).
+    ``connectivity`` follows the scipy/skimage convention (1 = faces,
+    ndim = full).  ``max_iter`` bounds propagation (0: ``n//4 + 2``
+    bodies; the loop exits early on convergence); hooking runs until
+    nothing changes.  ``return_bodies`` also returns the number of loop
+    bodies run."""
+    labels, bodies = _label(mask[None], connectivity, max_iter, method)
+    return (labels[0], bodies) if return_bodies else labels[0]
+
+
+def connected_components_batched(masks: torch.Tensor,
+                                 connectivity: int = 1) -> torch.Tensor:
+    """Hooking CC over a batch of equally shaped blocks (leading batch
+    axis): neighbors on the spatial axes only, each block's linear
+    indices starting at 0."""
+    return _label(masks, connectivity, 0, "hooking")[0]
+
+
+def relabel_consecutive(
+    labels: np.ndarray, start_label: int = 1, keep_zeros: bool = True
+) -> Tuple[np.ndarray, int]:
+    """Host-side consecutive relabeling (reference: vigra relabelConsecutive,
+    used ubiquitously).  Returns (relabeled, max_id)."""
+    labels = np.asarray(labels)
+    uniques = np.unique(labels)
+    if keep_zeros and uniques.size and uniques[0] == 0:
+        nonzero = uniques[1:]
+        new = np.searchsorted(nonzero, labels)
+        out = np.where(labels == 0, 0, new + start_label).astype(np.uint64)
+        max_id = start_label + nonzero.size - 1 if nonzero.size else 0
+        return out, int(max_id)
+    new = np.searchsorted(uniques, labels)
+    out = (new + start_label).astype(np.uint64)
+    return out, int(start_label + uniques.size - 1)
+
+
+def threshold_volume(x: torch.Tensor, threshold: float,
+                     mode: str = "greater") -> torch.Tensor:
+    """Thresholding modes of the reference (block_components.py)."""
+    if mode == "greater":
+        return x > threshold
+    if mode == "less":
+        return x < threshold
+    if mode == "equal":
+        return x == threshold
+    raise ValueError(f"unknown threshold mode {mode}")

@@ -1,16 +1,22 @@
-"""Segmentation-quality metrics: VI, adapted Rand, CREMI score.
+"""Segmentation-quality metrics: VI, adapted Rand, CREMI score, object VI.
 
-Port of cluster_tools_tpu/utils/validation.py (the reference's metric math,
-cluster_tools/utils/validation_utils.py:9-273) for the metrics the port's
-checks use.  Signatures and return conventions follow the reference:
+Port of cluster_tools_tpu/utils/validation.py (the reference's metric
+math, cluster_tools/utils/validation_utils.py:9-273):
+
+* the contingency table is computed by vectorized key-packing + ``np.unique``
+  on the host, or on a device through ops/overlaps.py (``on_device=True``,
+  on ``device``);
+* the VI / Rand primitives are vectorized numpy expressions.
+
+API signatures and return conventions follow the reference exactly:
 ``variation_of_information(seg, gt) -> (vi_split, vi_merge)``,
-``compute_rand_scores(table) -> (adapted_rand_error, rand_index)``,
-``cremi_score_from_table(table) -> (vis, vim, are, cremi)``.
+``rand_index(seg, gt) -> (adapted_rand_error, rand_index)``,
+``cremi_score(seg, gt) -> (vis, vim, are, cremi)``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -18,7 +24,6 @@ import numpy as np
 # ---------------------------------------------------------------------------
 # contingency tables
 # ---------------------------------------------------------------------------
-
 
 class ContingencyTable:
     """Sparse contingency table between label images A and B.
@@ -44,14 +49,22 @@ class ContingencyTable:
         self.n_points = float(self.p_counts.sum())
 
     @classmethod
-    def from_arrays(cls, seg_a: np.ndarray,
-                    seg_b: np.ndarray) -> "ContingencyTable":
+    def from_arrays(cls, seg_a: np.ndarray, seg_b: np.ndarray,
+                    on_device: bool = False,
+                    device: str = "cuda") -> "ContingencyTable":
+        """Contingency of two label images; ``on_device`` counts the
+        pairs on ``device`` (ops/overlaps.py), else with numpy."""
         a = np.asarray(seg_a).ravel().astype("uint64")
         b = np.asarray(seg_b).ravel().astype("uint64")
         if a.shape != b.shape:
             raise ValueError("segmentations must have the same size")
         if a.size == 0:
             return cls(np.zeros((0, 2), "uint64"), np.zeros(0, "float64"))
+        if on_device:
+            from ..ops.overlaps import count_overlaps
+
+            ia, ib, counts = count_overlaps(a, b, device=device)
+            return cls(np.stack([ia, ib], axis=1), counts.astype("float64"))
         if a.max() < 2 ** 32 and b.max() < 2 ** 32:
             key = (a << np.uint64(32)) | b
             uniq, counts = np.unique(key, return_counts=True)
@@ -96,6 +109,61 @@ class ContingencyTable:
                           uniq & np.uint64(0xFFFFFFFF)], axis=1)
         return cls(p_ids, counts)
 
+    def drop_pairs(self, mask: np.ndarray) -> "ContingencyTable":
+        keep = ~np.asarray(mask, bool)
+        return ContingencyTable(self.p_ids[keep], self.p_counts[keep])
+
+
+def compute_ignore_mask(seg_a, seg_b, ignore_a, ignore_b) -> Optional[np.ndarray]:
+    """Voxel mask selecting the points that enter the metrics (reference:
+    validation_utils.py:38-53): voxels ignored in *both* inputs (or in the
+    single given one) are excluded."""
+    if ignore_a is None and ignore_b is None:
+        return None
+    mask_a = None if ignore_a is None else np.isin(seg_a, ignore_a)
+    mask_b = None if ignore_b is None else np.isin(seg_b, ignore_b)
+    if mask_a is None:
+        ignore = mask_b
+    elif mask_b is None:
+        ignore = mask_a
+    else:
+        ignore = np.logical_and(mask_a, mask_b)
+    return np.logical_not(ignore)
+
+
+def drop_ignored_pairs(table: ContingencyTable,
+                       ignore_a: Optional[Sequence[int]] = None,
+                       ignore_b: Optional[Sequence[int]] = None
+                       ) -> ContingencyTable:
+    """Pair-level form of :func:`compute_ignore_mask`: each (a, b) pair stands
+    for an exact voxel set, so dropping pairs ignored in both inputs (or in
+    the single given one) is equivalent to voxel masking."""
+    if ignore_a is None and ignore_b is None:
+        return table
+    in_a = (np.isin(table.p_ids[:, 0], np.asarray(ignore_a, "uint64"))
+            if ignore_a is not None else None)
+    in_b = (np.isin(table.p_ids[:, 1], np.asarray(ignore_b, "uint64"))
+            if ignore_b is not None else None)
+    if in_a is None:
+        drop = in_b
+    elif in_b is None:
+        drop = in_a
+    else:
+        drop = in_a & in_b
+    return table.drop_pairs(drop)
+
+
+def _table_with_ignore(segmentation, groundtruth, ignore_seg, ignore_gt
+                       ) -> ContingencyTable:
+    """Contingency of (gt, seg) with the reference's ignore semantics."""
+    mask = compute_ignore_mask(segmentation, groundtruth, ignore_seg, ignore_gt)
+    seg = np.asarray(segmentation).ravel()
+    gt = np.asarray(groundtruth).ravel()
+    if mask is not None:
+        mask = mask.ravel()
+        seg, gt = seg[mask], gt[mask]
+    return ContingencyTable.from_arrays(gt, seg)
+
 
 # ---------------------------------------------------------------------------
 # VI (reference: validation_utils.py:60-113)
@@ -121,11 +189,35 @@ def compute_vi_scores(table: ContingencyTable, use_log2: bool = True
     return vi_split, vi_merge
 
 
-def variation_of_information(segmentation, groundtruth,
-                             use_log2: bool = True) -> Tuple[float, float]:
-    """(vi_split, vi_merge) of ``segmentation`` against ``groundtruth``."""
-    table = ContingencyTable.from_arrays(groundtruth, segmentation)
+def variation_of_information(segmentation, groundtruth, ignore_seg=None,
+                             ignore_gt=None, use_log2: bool = True
+                             ) -> Tuple[float, float]:
+    table = _table_with_ignore(segmentation, groundtruth, ignore_seg, ignore_gt)
     return compute_vi_scores(table, use_log2=use_log2)
+
+
+def compute_object_vi_scores(table: ContingencyTable, use_log2: bool = True
+                             ) -> Dict[int, Tuple[float, float]]:
+    """Per-gt-object (vi_split, vi_merge) (reference:
+    validation_utils.py:116-134, after arXiv:1708.02599 p.16)."""
+    log = np.log2 if use_log2 else np.log
+    gt_sizes = table.a_counts[table._inv_a]
+    seg_sizes = table.b_counts[table._inv_b]
+    c = table.p_counts
+    vim_terms = -c / gt_sizes * log(c / gt_sizes)
+    vis_terms = -c / gt_sizes * log(c / seg_sizes)
+    vim = np.bincount(table._inv_a, weights=vim_terms,
+                      minlength=len(table.a_ids))
+    vis = np.bincount(table._inv_a, weights=vis_terms,
+                      minlength=len(table.a_ids))
+    return {int(gt_id): (float(s), float(m))
+            for gt_id, s, m in zip(table.a_ids, vis, vim)}
+
+
+def object_vi(segmentation, groundtruth, ignore_seg=None, ignore_gt=None,
+              use_log2: bool = True) -> Dict[int, Tuple[float, float]]:
+    table = _table_with_ignore(segmentation, groundtruth, ignore_seg, ignore_gt)
+    return compute_object_vi_scores(table, use_log2=use_log2)
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +239,12 @@ def compute_rand_scores(table: ContingencyTable) -> Tuple[float, float]:
     return ari, ri
 
 
+def rand_index(segmentation, groundtruth, ignore_seg=None, ignore_gt=None
+               ) -> Tuple[float, float]:
+    table = _table_with_ignore(segmentation, groundtruth, ignore_seg, ignore_gt)
+    return compute_rand_scores(table)
+
+
 # ---------------------------------------------------------------------------
 # CREMI score (reference: validation_utils.py:234-273)
 # ---------------------------------------------------------------------------
@@ -159,3 +257,9 @@ def cremi_score_from_table(table: ContingencyTable
     ari, _ = compute_rand_scores(table)
     cs = float(np.sqrt(ari * (vis + vim)))
     return vis, vim, ari, cs
+
+
+def cremi_score(segmentation, groundtruth, ignore_seg=None, ignore_gt=None
+                ) -> Tuple[float, float, float, float]:
+    table = _table_with_ignore(segmentation, groundtruth, ignore_seg, ignore_gt)
+    return cremi_score_from_table(table)

@@ -8,7 +8,9 @@ multicut and the final write (reference workflows.py:204-233) — the split
 chain (``fused=False``, the default: fragments from an upstream
 ``WatershedWorkflow``) or the fused chain (``fused=True``: fragments,
 graph and features from one device pass per block,
-workflows/fused_pipeline.py).
+workflows/fused_pipeline.py).  ``SimpleStitchingWorkflow`` merges every
+fragment pair across a block boundary over a feature-only problem
+(reference workflows.py:361-386).
 """
 
 from __future__ import annotations
@@ -156,3 +158,60 @@ class MulticutSegmentationWorkflow(Task):
     def output(self):
         return FileTarget(os.path.join(self.tmp_folder,
                                        "write_multicut.status"))
+
+
+class SimpleStitchingWorkflow(Task):
+    """Problem (features only) -> merge block-boundary edges -> write
+    (reference: SimpleStitchingWorkflow, workflows.py:361-386)."""
+
+    def __init__(self, input_path: str, input_key: str, ws_path: str,
+                 ws_key: str, problem_path: str, output_path: str,
+                 output_key: str, tmp_folder: str, config_dir: str,
+                 max_jobs: int = 1, target: str = "gpu",
+                 edge_size_threshold: int = 0,
+                 dependency: Optional[Task] = None):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.problem_path = problem_path
+        self.output_path = output_path
+        self.output_key = output_key
+        self.edge_size_threshold = edge_size_threshold
+        self.tmp_folder = tmp_folder
+        self.config_dir = config_dir
+        self.max_jobs = max_jobs
+        self.target = target
+        self.dependency = dependency
+        super().__init__()
+
+    def _common(self):
+        return dict(tmp_folder=self.tmp_folder, config_dir=self.config_dir,
+                    max_jobs=self.max_jobs, target=self.target)
+
+    def requires(self):
+        from .stitching import StitchingAssignmentsWorkflow
+
+        problem = ProblemWorkflow(
+            input_path=self.input_path, input_key=self.input_key,
+            ws_path=self.ws_path, ws_key=self.ws_key,
+            problem_path=self.problem_path, compute_costs=False,
+            dependency=self.dependency, **self._common())
+        stitch = StitchingAssignmentsWorkflow(
+            problem_path=self.problem_path, labels_path=self.ws_path,
+            labels_key=self.ws_key, assignments_path=self.problem_path,
+            assignments_key="stitch_assignments", graph_key="s0/graph",
+            features_key="features",
+            edge_size_threshold=self.edge_size_threshold,
+            dependency=problem, **self._common())
+        return WriteAssignments(
+            input_path=self.ws_path, input_key=self.ws_key,
+            output_path=self.output_path, output_key=self.output_key,
+            assignment_path=self.problem_path,
+            assignment_key="stitch_assignments",
+            identifier="simple_stitching", dependency=stitch,
+            **self._common())
+
+    def output(self):
+        return FileTarget(os.path.join(self.tmp_folder,
+                                       "write_simple_stitching.status"))

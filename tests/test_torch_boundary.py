@@ -98,6 +98,17 @@ def test_affinity_path_modules_are_held_to_the_rule():
         assert f"cluster_tools_tpu_torch.{name}" in mods, name
 
 
+def test_components_stitching_and_evaluation_modules_are_held_to_the_rule():
+    """The modules of connected components, block stitching, node labels
+    and evaluation are among those the two checks above walk."""
+    mods = set(_port_modules())
+    for name in ("ops.components", "ops.overlaps", "utils.validation",
+                 "workflows.thresholded_components", "workflows.stitching",
+                 "workflows.node_labels", "workflows.evaluation",
+                 "workflows.segmentation"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+
+
 def test_affinity_path_raises_without_a_card(tmp_path):
     """InferenceTask and the mutex-watershed workflows default to the
     card too, and raise on a host without one before any work runs."""

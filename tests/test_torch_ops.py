@@ -80,7 +80,8 @@ def test_connected_components_propagation_exact(ref, connectivity):
     want = np.asarray(jc.connected_components(
         jnp.asarray(ref["maxima"]), connectivity=connectivity,
         method="propagation"))
-    got = pc.connected_components(_t(ref["maxima"]), connectivity).numpy()
+    got = pc.connected_components(_t(ref["maxima"]), connectivity,
+                                  method="propagation").numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -93,7 +94,8 @@ def test_connected_components_iteration_bound():
     mask[0, 3::4, 0] = True
     want = np.asarray(jc.connected_components(
         jnp.asarray(mask), connectivity=1, max_iter=3, method="propagation"))
-    got = pc.connected_components(_t(mask), 1, max_iter=3).numpy()
+    got = pc.connected_components(_t(mask), 1, max_iter=3,
+                                  method="propagation").numpy()
     np.testing.assert_array_equal(got, want)
     assert len(np.unique(got)) > 2     # not converged: the bound held
 
