@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, then runs ten phases, each of which must pass:
+sources, then runs twelve phases, each of which must pass:
 
 1. the build;
 2. the min-plus EDT kernel against its plain PyTorch version (in place
@@ -37,8 +37,8 @@ sources, then runs ten phases, each of which must pass:
    ``MwsWorkflow`` on the card;
 8. the affinity path at full size: (a) ``InferenceTask`` with the
    default-width U-Net on phase 4's volume, with the forward pass timed
-   against its bound; (b) ``TwoPassMwsWorkflow`` at config 3's size,
-   checked against the ground truth.  This path launches no kernel of
+   against its bound; (b) ``TwoPassMwsWorkflow`` at config 3's width
+   (its depth cut to 32), checked against the ground truth.  This path launches no kernel of
    the port (no Pallas kernel lies on it in the JAX package);
 9. connected components, stitching and evaluation, card against CPU on
    small volumes: (a) hooking connected components (single, batched
@@ -57,7 +57,27 @@ sources, then runs ten phases, each of which must pass:
    ground truth, held to phase 6's whole-volume scores; (c)
    ``StitchingWorkflow`` on phase 4's ground truth relabelled per block,
    card against CPU, held to the adapted Rand gate.  Phases 9-10 launch
-   no kernel of the port.
+   no kernel of the port;
+11. the fused task's other executions and the split watershed's options,
+   card against CPU on ``(32, 128, 128)`` volumes: (a) the fused chain with
+   ``ws_method`` ``hybrid`` and ``legacy`` and on a 4-d (channel) store,
+   which takes ``legacy``; (b) ``WatershedWorkflow`` with ``apply_ws_2d``,
+   ``non_maximum_suppression``, ``ws_algorithm: "flood"`` (single pass and
+   ``two_pass``, on a smaller volume), ``impl: "host"`` and
+   ``agglomeration=True``, and ``WatershedFromSeedsTask``; (c)
+   ``LiftedMulticutSegmentationWorkflow`` (the ground truth folded into
+   classes as the lifted prior) and ``AgglomerativeClusteringWorkflow``
+   over the same fragments; each held to the VOI gate;
+12. at full block width on a four-block crop of phase 4's volume: (a)
+   the fused chain with ``hybrid`` and ``legacy``, held to the CREMI
+   gate, their VOI to phase 4's fragments and segmentation logged, the
+   kernel's launches counted; (b) the
+   watershed's ``apply_ws_2d``, ``flood`` and ``non_maximum_suppression``
+   options and the block-local agglomeration, scored against the ground
+   truth, launches counted;
+   (c) ``LiftedMulticutSegmentationWorkflow`` and
+   ``AgglomerativeClusteringWorkflow`` over phase 4's fragments on that
+   crop, scored against the ground truth.
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -80,7 +100,7 @@ import numpy as np
 FULL_SHAPE = (125, 1250, 1250)
 BLOCK = [50, 512, 512]
 #: the small card-vs-CPU volume
-SMALL_SHAPE = (64, 256, 256)
+SMALL_SHAPE = (32, 256, 256)
 SMALL_BLOCK = [32, 128, 128]
 #: H100 SXM HBM rate (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
@@ -279,10 +299,13 @@ def kernel_vs_plain(outer, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def write_volume(path: str, data: np.ndarray, block) -> None:
+    """``data`` as ``bmap`` in ``block`` chunks (a 4-d channel volume in
+    chunks of all its channels)."""
     from cluster_tools_tpu_torch.core.storage import file_reader
 
+    chunks = list(block) if data.ndim == 3 else [data.shape[0]] + list(block)
     with file_reader(path) as f:
-        ds = f.require_dataset("bmap", shape=data.shape, chunks=block,
+        ds = f.require_dataset("bmap", shape=data.shape, chunks=chunks,
                                dtype=data.dtype)
         ds[:] = data
 
@@ -324,23 +347,28 @@ def _build(wf, tmp: str, store: str, ws_key: str, seg_key: str,
     return wall, ws, seg, read_status(tmp)
 
 
-def run_workflow(workdir: str, store: str, block, device: str):
+def run_workflow(workdir: str, store: str, block, device: str,
+                 task_cfg=None, tag: str = ""):
     """``MulticutSegmentationWorkflow(fused=True, target="gpu")`` with the
-    default fused task config on ``device``; returns (wall s, fragments,
+    fused task config ``task_cfg`` (default config if None) on ``device``,
+    writing ``ws<tag>`` / ``seg<tag>``; returns (wall s, fragments,
     segmentation, status JSONs by task)."""
     import cluster_tools_tpu_torch as ctp
     from cluster_tools_tpu_torch.core.config import ConfigDir
 
-    cfg_dir = os.path.join(workdir, "configs")
+    cfg_dir = os.path.join(workdir, f"configs{tag}")
     ConfigDir(cfg_dir).write_global_config({"block_shape": list(block),
                                             "device": device})
-    tmp = os.path.join(workdir, "tmp")
+    ConfigDir(cfg_dir).write_task_config("fused_segmentation",
+                                         task_cfg or {})
+    tmp = os.path.join(workdir, f"tmp{tag}")
     wf = ctp.MulticutSegmentationWorkflow(
-        input_path=store, input_key="bmap", ws_path=store, ws_key="ws",
-        problem_path=os.path.join(workdir, "problem.n5"), output_path=store,
-        output_key="seg", tmp_folder=tmp, config_dir=cfg_dir,
-        max_jobs=os.cpu_count() or 1, target="gpu", n_scales=1, fused=True)
-    return _build(wf, tmp, store, "ws", "seg", device)
+        input_path=store, input_key="bmap", ws_path=store, ws_key=f"ws{tag}",
+        problem_path=os.path.join(workdir, f"problem{tag}.n5"),
+        output_path=store, output_key=f"seg{tag}", tmp_folder=tmp,
+        config_dir=cfg_dir, max_jobs=os.cpu_count() or 1, target="gpu",
+        n_scales=1, fused=True)
+    return _build(wf, tmp, store, f"ws{tag}", f"seg{tag}", device)
 
 
 def run_split_workflow(workdir: str, store: str, block, device: str,
@@ -375,22 +403,43 @@ def run_split_workflow(workdir: str, store: str, block, device: str,
     return _build(wf, tmp, store, "ws_split", "seg_split", device)
 
 
-def scores(seg: np.ndarray, gt: np.ndarray):
-    from cluster_tools_tpu_torch.utils.validation import (
-        ContingencyTable, cremi_score_from_table)
+def contingency(a: np.ndarray, b: np.ndarray):
+    """The port's ``ContingencyTable`` of two label volumes, its (a, b)
+    pairs counted on the card (one int64 key per voxel, ``torch.unique``)
+    when both fit 31 bits, else on the host in chunks."""
+    import torch
 
-    table = ContingencyTable.from_arrays_chunked(gt, seg)
-    vis, vim, are, cs = cremi_score_from_table(table)
+    from cluster_tools_tpu_torch.utils.validation import ContingencyTable
+
+    if a.shape != b.shape:
+        raise ValueError("segmentations must have the same size")
+    if int(a.max()) >= 2 ** 31 or int(b.max()) >= 2 ** 31:
+        return ContingencyTable.from_arrays_chunked(a, b)
+    keys = []
+    for z0, z1 in _slabs(a.shape[0]):
+        ta, tb = (torch.from_numpy(np.ascontiguousarray(x[z0:z1]).astype(
+            "int64")).to("cuda") for x in (a, b))
+        keys.append((ta << 32 | tb).reshape(-1))
+    uniq, counts = torch.unique(torch.cat(keys), return_counts=True)
+    uniq = uniq.cpu().numpy().astype("uint64")
+    p_ids = np.stack([uniq >> np.uint64(32), uniq & np.uint64(0xFFFFFFFF)],
+                     axis=1)
+    return ContingencyTable(p_ids, counts.cpu().numpy().astype("float64"))
+
+
+def scores(seg: np.ndarray, gt: np.ndarray):
+    from cluster_tools_tpu_torch.utils.validation import \
+        cremi_score_from_table
+
+    vis, vim, are, cs = cremi_score_from_table(contingency(gt, seg))
     return {"voi_split": vis, "voi_merge": vim, "rand_error": are,
             "cremi": cs}
 
 
 def voi(a: np.ndarray, b: np.ndarray) -> float:
-    from cluster_tools_tpu_torch.utils.validation import (
-        ContingencyTable, compute_vi_scores)
+    from cluster_tools_tpu_torch.utils.validation import compute_vi_scores
 
-    return float(sum(compute_vi_scores(
-        ContingencyTable.from_arrays_chunked(b, a))))
+    return float(sum(compute_vi_scores(contingency(b, a))))
 
 
 def card_vs_cpu(root: str, shape, block):
@@ -478,30 +527,15 @@ def _slabs(n: int, step: int = 25):
     return [(z, min(z + step, n)) for z in range(0, n, step)]
 
 
-def id_map(da, db):
-    """The voxelwise id map a -> b of two label volumes (arrays or
-    datasets, read in z-slabs) as a lookup table (-1 for ids absent from
-    a), or None when it is not a function: some id of a meets two ids of
-    b."""
-    max_a = max(int(da[z0:z1].max()) for z0, z1 in _slabs(da.shape[0]))
-    lut = np.full(max_a + 1, -1, "int64")
-    for z0, z1 in _slabs(da.shape[0]):
-        x = da[z0:z1].ravel().astype("int64")
-        y = db[z0:z1].ravel().astype("int64")
-        new = lut[x] < 0
-        lut[x[new]] = y[new]
-        if (lut[x] != y).any():
-            return None
-    return lut
-
-
-def same_partition(da, db) -> bool:
-    """True when two label volumes describe the same partition with the
-    same background: the voxelwise id maps a -> b and b -> a are both
-    functions, and neither sends 0 to another id."""
-    ab, ba = id_map(da, db), id_map(db, da)
-    return ab is not None and ba is not None and ab[0] in (-1, 0) and \
-        ba[0] in (-1, 0)
+def same_partition(a, b) -> bool:
+    """True when two label volumes (arrays or datasets) describe the same
+    partition with the same background: every id of one meets exactly one
+    id of the other (their contingency table, counted on the card, pairs
+    the ids one to one), and 0 meets only 0."""
+    t = contingency(np.asarray(a[:]), np.asarray(b[:]))
+    zero = (t.p_ids[:, 0] == 0) | (t.p_ids[:, 1] == 0)
+    return len(t.p_ids) == len(t.a_ids) == len(t.b_ids) and \
+        bool((t.p_ids[zero] == 0).all())
 
 
 def split_path(root: str, shape, block, gt):
@@ -619,10 +653,12 @@ def main_path(root: str, shape, block):
 INF_SHAPE = (32, 256, 256)
 INF_BLOCK = [16, 128, 128]
 AFF_HALO = [4, 16, 16]
-#: phase 7's mutex-watershed volume and phase 8's (config 3's size)
-MWS_SMALL_SHAPE = (64, 256, 256)
-MWS_SMALL_BLOCK = [32, 128, 128]
-MWS_SHAPE = (64, 512, 512)
+#: phase 7's mutex-watershed volume and phase 8's: config 3's width,
+#: its depth cut from 64 to 32 (one layer of blocks) to keep the script
+#: inside its time limit
+MWS_SMALL_SHAPE = (32, 128, 128)
+MWS_SMALL_BLOCK = [32, 64, 64]
+MWS_SHAPE = (32, 512, 512)
 MWS_BLOCK = [32, 256, 256]
 #: card against CPU: the float32 U-Net (TF32 off) sums in other orders;
 #: the bfloat16 one rounds after sums in other orders (the CPU's own
@@ -662,11 +698,12 @@ def write_dataset(path: str, key: str, data: np.ndarray, chunks) -> None:
                           dtype=data.dtype)[:] = data
 
 
-def read_dataset(path: str, key: str) -> np.ndarray:
+def read_dataset(path: str, key: str, bb=None) -> np.ndarray:
+    """A dataset, or its box ``bb``."""
     from cluster_tools_tpu_torch.core.storage import file_reader
 
     with file_reader(path, "r") as f:
-        return f[key][:]
+        return f[key][bb if bb is not None else slice(None)]
 
 
 def unet_cost(model, shape):
@@ -988,10 +1025,10 @@ def inference_path(root: str, ckpt: str):
 
 
 def mws_path(root: str, gt: np.ndarray):
-    """Phase 8b: ``TwoPassMwsWorkflow`` at the JAX package's config-3 size
-    on the card: 12-channel uint8 affinities of a ``(64, 512, 512)`` crop
-    of phase 4's ground truth (about 240 cells, as there), blocks ``[32,
-    256, 256]``, halo ``[4, 16, 16]``.  The crop is a cut of depth: the
+    """Phase 8b: ``TwoPassMwsWorkflow`` at the JAX package's config-3
+    width on the card: 12-channel uint8 affinities of a ``MWS_SHAPE`` crop
+    of phase 4's ground truth, blocks ``[32, 256, 256]``, halo ``[4, 16,
+    16]``.  The crop is a cut of depth (config 3 has 64 slices): the
     sequential host union-find scan over ~30 M edges per block sets its
     time."""
     import torch
@@ -1403,8 +1440,8 @@ def stitch_path(root: str, gt: np.ndarray):
     face (``tests/test_torch_stitching.py``
     ``::test_false_merges_are_the_reference_rule``)."""
     import cluster_tools_tpu_torch as ctp
-    from cluster_tools_tpu_torch.utils.validation import (
-        ContingencyTable, cremi_score_from_table)
+    from cluster_tools_tpu_torch.utils.validation import \
+        cremi_score_from_table
 
     t0 = time.perf_counter()
     wd = os.path.join(root, "stitch_main")
@@ -1434,7 +1471,7 @@ def stitch_path(root: str, gt: np.ndarray):
                 f"{st.get('wall_time')} stages "
                 f"{json.dumps(st.get('stages', {}))}")
     identical = bool(np.array_equal(out["cuda"], out["cpu"]))
-    table = ContingencyTable.from_arrays_chunked(gt, out["cuda"])
+    table = contingency(gt, out["cuda"])
     vis, vim, are, cremi = cremi_score_from_table(table)
     _, n_cells = np.unique(table.p_ids[:, 1], return_counts=True)
     quality = {"voi_split": vis, "voi_merge": vim, "rand_error": are,
@@ -1451,7 +1488,343 @@ def stitch_path(root: str, gt: np.ndarray):
     return {"wall_s": wall, "rand_error": are}
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the fused task's other executions, the split
+# watershed's options, the lifted multicut and agglomerative clustering
+# ---------------------------------------------------------------------------
+
+#: phase 11a's fused executions: (name, fused task config, channel store)
+VARIANT_CONFIGS = [
+    ("hybrid", {"ws_method": "hybrid"}, False),
+    ("legacy", {"ws_method": "legacy"}, False),
+    # a 4-d store takes the legacy path under the default ws_method
+    ("legacy-4d", {}, True),
+]
+#: phase 11b's watershed options: (name, watershed task config, two_pass,
+#: agglomeration)
+WS_OPTIONS = [
+    ("apply_ws_2d", {"apply_ws_2d": True}, False, False),
+    ("nms", {"non_maximum_suppression": True}, False, False),
+    ("flood", {"ws_algorithm": "flood"}, False, False),
+    ("flood-two_pass", {"ws_algorithm": "flood"}, True, False),
+    ("host", {"impl": "host"}, False, False),
+    ("agglomeration", {}, False, True),
+]
+#: phase 11's card-vs-CPU volume and blocks (four blocks, a quarter of
+#: SMALL_SHAPE: the CPU sides dominate the phase)
+P11_SHAPE = (32, 128, 128)
+P11_BLOCK = [32, 64, 64]
+#: the flood's card-vs-CPU volume: its hundreds of stencil bodies per
+#: block take tens of seconds per block on the host
+FLOOD_SHAPE = (16, 128, 128)
+FLOOD_BLOCK = [16, 64, 64]
+#: phase 12's crop of phase 4's volume: four blocks (the script's time
+#: limit: ``legacy`` redoes every block of this volume, ~6-10 s each)
+CROP = (50, 1024, 1024)
+#: phases 11c/12c: the lifted prior is the ground truth folded into
+#: N_CLASSES semantic classes; lifted edges reach LIFTED_DEPTH hops
+N_CLASSES = 8
+LIFTED_DEPTH = 2
+AGGLO_THRESHOLD = 0.5
+
+
+def gate_card_vs_cpu(name: str, card: np.ndarray, cpu: np.ndarray) -> float:
+    """Card and CPU labels within the VOI gate (identity logged)."""
+    v = voi(card, cpu)
+    same = bool(np.array_equal(card, cpu))
+    log(f"{name} card-vs-cpu VOI {v} identical {same} (gate {VOI_GATE})")
+    if not v <= VOI_GATE:
+        raise AssertionError(f"{name}: card and CPU disagree beyond the "
+                             "gate")
+    return v
+
+
+def run_ws(workdir: str, store: str, block, device: str, ws_cfg,
+           two_pass: bool = False, agglomeration: bool = False,
+           tag: str = ""):
+    """``WatershedWorkflow`` (target "gpu") with the watershed task config
+    ``ws_cfg`` on ``device``, writing ``ws<tag>``; returns (wall s,
+    fragments, status JSONs by task)."""
+    import cluster_tools_tpu_torch as ctp
+
+    cfg = config_dir(os.path.join(workdir, f"ws{tag}"), block, device,
+                     {n: ws_cfg for n in ("watershed", "watershed_pass1",
+                                          "watershed_pass2")})
+    tmp = os.path.join(workdir, f"tmp_ws{tag}")
+    wf = ctp.WatershedWorkflow(
+        input_path=store, input_key="bmap", output_path=store,
+        output_key=f"ws{tag}", two_pass=two_pass,
+        agglomeration=agglomeration, tmp_folder=tmp, config_dir=cfg,
+        max_jobs=os.cpu_count() or 1, target="gpu")
+    wall = timed_build(wf, device)
+    return wall, read_dataset(store, f"ws{tag}"), read_status(tmp)
+
+
+def seeds_from_gt(gt: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """A sparse seed volume: the ground-truth id (offset by 1000) on a
+    grid of voxels away from the boundaries."""
+    grid = np.zeros(gt.shape, bool)
+    grid[2::4, 8::16, 8::16] = True
+    return np.where(grid & (data < 64), gt.astype("uint64") + 1000, 0)
+
+
+def run_from_seeds(workdir: str, store: str, block, device: str):
+    import cluster_tools_tpu_torch as ctp
+
+    tmp = os.path.join(workdir, "tmp_seeds")
+    task = ctp.WatershedFromSeedsTask(
+        input_path=store, input_key="bmap", seeds_path=store,
+        seeds_key="seeds", output_path=store, output_key="ws_seeds",
+        tmp_folder=tmp, config_dir=config_dir(os.path.join(workdir, "sd"),
+                                              block, device),
+        max_jobs=os.cpu_count() or 1, target="gpu")
+    wall = timed_build(task, device)
+    return wall, read_dataset(store, "ws_seeds")
+
+
+def run_lifted_agglo(workdir: str, store: str, block, device: str,
+                     which: str, tag: str = ""):
+    """``LiftedMulticutSegmentationWorkflow`` (prior ``classes``) or
+    ``AgglomerativeClusteringWorkflow`` over the fragments ``frags`` of
+    ``store`` on ``device``, writing ``seg_<which><tag>``; returns (wall s,
+    segmentation)."""
+    import cluster_tools_tpu_torch as ctp
+
+    name = f"{which}{tag}"
+    common = dict(
+        input_path=store, input_key="bmap", ws_path=store, ws_key="frags",
+        problem_path=os.path.join(workdir, f"problem_{name}.n5"),
+        output_path=store, output_key=f"seg_{name}",
+        tmp_folder=os.path.join(workdir, f"tmp_{name}"),
+        config_dir=config_dir(os.path.join(workdir, name), block, device),
+        max_jobs=os.cpu_count() or 1, target="gpu")
+    if which == "lifted":
+        wf = ctp.LiftedMulticutSegmentationWorkflow(
+            labels_path=store, labels_key="classes", lifted_prefix="cls",
+            nh_graph_depth=LIFTED_DEPTH, **common)
+    else:
+        wf = ctp.AgglomerativeClusteringWorkflow(threshold=AGGLO_THRESHOLD,
+                                                 **common)
+    wall = timed_build(wf, device)
+    return wall, read_dataset(store, f"seg_{name}")
+
+
+def write_fragments(store: str, frags: np.ndarray, gt: np.ndarray,
+                    block) -> None:
+    """Consecutive fragments (``frags``, with maxId) and the lifted prior
+    (``classes``: the ground truth folded into N_CLASSES classes)."""
+    _, inv = np.unique(frags, return_inverse=True)
+    frags = (inv.reshape(frags.shape) + 1).astype("uint64")
+    write_dataset(store, "frags", frags, block)
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    with file_reader(store) as f:
+        f["frags"].attrs["maxId"] = int(frags.max())
+    write_dataset(store, "classes", (gt.astype("uint64") % N_CLASSES) + 1,
+                  block)
+
+
+def variants_card_vs_cpu(root: str, data: np.ndarray, block):
+    """Phase 11a: the fused chain with ws_method ``hybrid`` and ``legacy``
+    and on a 4-d store (which takes ``legacy``), card against CPU."""
+    for name, cfg, channels in VARIANT_CONFIGS:
+        vol = np.stack([data, data]) if channels else data
+        out = {}
+        for device in ("cuda", "cpu"):
+            wd = os.path.join(root, f"variant_{name}_{device}")
+            store = os.path.join(wd, "data.n5")
+            write_volume(store, vol, block)
+            wall, ws, seg, status = run_workflow(wd, store, block, device,
+                                                 cfg)
+            counts = status["fused_segmentation"]["stage_counts"]
+            log(f"variant-small {name} {device}: shape {list(vol.shape)} "
+                f"wall_s {wall} stage_counts {json.dumps(counts)}")
+            if "h2d-upload" in counts:
+                raise AssertionError(f"{name}: the resident path ran")
+            out[device] = (ws, seg)
+        gate_card_vs_cpu(f"variant-small {name} fragments", *[
+            out[d][0] for d in ("cuda", "cpu")])
+        gate_card_vs_cpu(f"variant-small {name} segmentation", *[
+            out[d][1] for d in ("cuda", "cpu")])
+
+
+def ws_options_card_vs_cpu(root: str, data: np.ndarray, gt: np.ndarray,
+                           flood_data: np.ndarray):
+    """Phase 11b: ``WatershedWorkflow`` with each of WS_OPTIONS (the flood
+    on FLOOD_SHAPE) and ``WatershedFromSeedsTask``, card against CPU."""
+    for name, ws_cfg, two_pass, agglo in WS_OPTIONS:
+        flood = ws_cfg.get("ws_algorithm") == "flood"
+        vol, block = ((flood_data, FLOOD_BLOCK) if flood
+                      else (data, P11_BLOCK))
+        out = {}
+        for device in ("cuda", "cpu"):
+            wd = os.path.join(root, f"wsopt_{name}_{device}")
+            store = os.path.join(wd, "data.n5")
+            write_volume(store, vol, block)
+            wall, ws, _ = run_ws(wd, store, block, device, ws_cfg, two_pass,
+                                 agglo)
+            log(f"ws-small {name} {device}: shape {list(vol.shape)} "
+                f"wall_s {wall} n_fragments {int(ws.max())}")
+            out[device] = ws
+        gate_card_vs_cpu(f"ws-small {name}", out["cuda"], out["cpu"])
+    out = {}
+    seeds = seeds_from_gt(gt, data)
+    for device in ("cuda", "cpu"):
+        wd = os.path.join(root, f"seeds_{device}")
+        store = os.path.join(wd, "data.n5")
+        write_volume(store, data, P11_BLOCK)
+        write_dataset(store, "seeds", seeds, P11_BLOCK)
+        wall, ws = run_from_seeds(wd, store, P11_BLOCK, device)
+        log(f"ws-small from_seeds {device}: wall_s {wall} "
+            f"n_ids {len(np.unique(ws))}")
+        if not set(np.unique(ws)) <= set(np.unique(seeds)):
+            raise AssertionError("WatershedFromSeedsTask made new ids")
+        out[device] = ws
+    gate_card_vs_cpu("ws-small from_seeds", out["cuda"], out["cpu"])
+
+
+def lifted_agglo_card_vs_cpu(root: str, data: np.ndarray, gt: np.ndarray):
+    """Phase 11c: ``LiftedMulticutSegmentationWorkflow`` and
+    ``AgglomerativeClusteringWorkflow`` over the same fragments (the
+    default watershed on the card), card against CPU."""
+    wd = os.path.join(root, "lifted_small")
+    store = os.path.join(wd, "data.n5")
+    write_volume(store, data, P11_BLOCK)
+    _, frags, _ = run_ws(wd, store, P11_BLOCK, "cuda", {})
+    write_fragments(store, frags, gt, P11_BLOCK)
+    for which in ("lifted", "agglo"):
+        out = {}
+        for device in ("cuda", "cpu"):
+            wall, seg = run_lifted_agglo(wd, store, P11_BLOCK, device,
+                                         which, tag=f"_{device}")
+            log(f"{which}-small {device}: wall_s {wall} n_segments "
+                f"{len(np.unique(seg))} quality {json.dumps(scores(seg, gt))}")
+            out[device] = seg
+        gate_card_vs_cpu(f"{which}-small", out["cuda"], out["cpu"])
+
+
+def write_crop(root: str, block, gt: np.ndarray):
+    """Phase 12's volume: the CROP of phase 4's input (its store still on
+    disk) in a store of its own; returns the store and the ground truth
+    there."""
+    box = tuple(slice(0, c) for c in CROP)
+    store = os.path.join(root, "crop", "data.n5")
+    write_volume(store, read_dataset(os.path.join(root, "main", "data.n5"),
+                                     "bmap", box), block)
+    return store, np.ascontiguousarray(gt[box])
+
+
+def variants_path(root: str, store: str, block, gt_c: np.ndarray):
+    """Phase 12a: the fused chain with ws_method ``hybrid`` and ``legacy``
+    on the crop: CREMI under its gate, the VOI to phase 4's outputs there
+    logged, the kernel's launches counted (3 per block, plus 3 per legacy
+    redo); returns launches by method."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+
+    main = os.path.join(root, "main", "data.n5")
+    box = tuple(slice(0, c) for c in CROP)
+    n_blocks = Blocking(list(CROP), list(block)).n_blocks
+    launches = {}
+    for method in ("hybrid", "legacy"):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        wall, ws, seg, status = run_workflow(
+            os.path.dirname(store), store, block, "cuda",
+            {"ws_method": method}, tag=f"_{method}")
+        edt_calls = kernels.counts()["minplus"]
+        peak = torch.cuda.max_memory_allocated()
+        log(f"variant-path {method} shape {list(CROP)} wall_s {wall} "
+            f"voxels_per_s {int(np.prod(CROP)) / wall} n_blocks {n_blocks} "
+            f"peak_device_bytes {peak}")
+        for task, st in status.items():
+            log(f"variant-path {method} task {task} wall_s "
+                f"{st.get('wall_time')} stages "
+                f"{json.dumps(st.get('stages', {}))} stage_counts "
+                f"{json.dumps(st.get('stage_counts', {}))}")
+        sc = scores(seg, gt_c)
+        # against phase 4's ``device`` method: another watershed (the
+        # host flood on uint8 levels; the full-resolution basins) makes
+        # other fragments, so the VOIs are logged and the quality gated
+        v_ws = voi(ws, read_dataset(main, "ws", box))
+        v_seg = voi(seg, read_dataset(main, "seg", box))
+        redo = status["fused_segmentation"]["stage_counts"].get(
+            "device-ws-redo", 0)
+        log(f"variant-path {method} quality {json.dumps(sc)} "
+            f"vs-device VOI fragments {v_ws} segmentation {v_seg} "
+            f"minplus launches {edt_calls} ws-redo {redo}")
+        if edt_calls != 3 * n_blocks + 3 * redo:
+            raise AssertionError(f"{method}: min-plus kernel launched "
+                                 f"{edt_calls} times for {n_blocks} blocks "
+                                 f"and {redo} redos")
+        if not (np.isfinite(list(sc.values())).all()
+                and sc["cremi"] <= CREMI_GATE and ws.shape == CROP):
+            raise AssertionError(f"{method}: segmentation quality out of "
+                                 f"bounds: {sc}")
+        launches[method] = edt_calls
+    return launches
+
+
+def crop_paths(root: str, store: str, block, gt_c: np.ndarray):
+    """Phases 12b and 12c on the crop (CROP, four blocks of ``block``):
+    the split watershed's ``apply_ws_2d``, ``flood`` and
+    ``non_maximum_suppression`` options and the block-local agglomeration,
+    then the lifted multicut and agglomerative clustering segmentations
+    over phase 4's fragments there; returns the kernel launches by
+    option."""
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+
+    crop = tuple(slice(0, c) for c in CROP)
+    main = os.path.join(root, "main", "data.n5")
+    wd = os.path.dirname(store)
+    nvox = int(np.prod(CROP))
+    n_blocks = Blocking(list(CROP), list(block)).n_blocks
+    expect = {"apply_ws_2d": 2 * n_blocks, "flood": 3 * n_blocks,
+              "nms": 3 * n_blocks, "agglomeration": 3 * n_blocks}
+    launches = {}
+    for name, ws_cfg, _, agglo in WS_OPTIONS:
+        if name not in expect:
+            continue
+        kernels.reset_counts()
+        wall, ws, status = run_ws(wd, store, block, "cuda", ws_cfg,
+                                  agglomeration=agglo, tag=f"_{name}")
+        edt_calls = kernels.counts()["minplus"]
+        redo = status.get("watershed", {}).get("stage_counts", {}).get(
+            "device-ws-redo", 0)
+        sc = scores(ws, gt_c)
+        log(f"crop-ws {name} wall_s {wall} voxels_per_s "
+            f"{nvox / wall} n_blocks {n_blocks} n_fragments "
+            f"{int(ws.max())} minplus launches {edt_calls} ws-redo {redo} "
+            f"quality {json.dumps(sc)}")
+        for task, st in status.items():
+            log(f"crop-ws {name} task {task} wall_s {st.get('wall_time')} "
+                f"stages {json.dumps(st.get('stages', {}))}")
+        if edt_calls != expect[name] + 3 * redo:
+            raise AssertionError(f"crop-ws {name}: min-plus kernel launched "
+                                 f"{edt_calls} times")
+        if not np.isfinite(list(sc.values())).all() or ws.shape != CROP:
+            raise AssertionError(f"crop-ws {name}: bad fragments")
+        launches[name] = edt_calls
+    write_fragments(store, read_dataset(main, "ws", crop), gt_c, block)
+    kernels.reset_counts()
+    for which in ("lifted", "agglo"):
+        wall, seg = run_lifted_agglo(wd, store, block, "cuda", which)
+        sc = scores(seg, gt_c)
+        log(f"crop-{which} wall_s {wall} n_segments {len(np.unique(seg))} "
+            f"quality {json.dumps(sc)}")
+        if not np.isfinite(list(sc.values())).all() or seg.shape != CROP:
+            raise AssertionError(f"crop-{which}: bad segmentation")
+    if kernels.counts()["minplus"] != 0:
+        raise AssertionError("phase 12c launched the min-plus kernel")
+    return launches
+
+
+
 def main() -> int:
+    started = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1486,51 +1859,79 @@ def main() -> int:
     root = os.path.join(repo, "_smoke_work")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name} elapsed_s {time.perf_counter() - t0}")
+        return out
+
     try:
-        card_vs_cpu(root, SMALL_SHAPE, SMALL_BLOCK)
-        record, gt = main_path(root, FULL_SHAPE, BLOCK)
-        split_card_vs_cpu(root, SMALL_SHAPE, SMALL_BLOCK)
-        split = split_path(root, FULL_SHAPE, BLOCK, gt)
-        ckpt = make_checkpoint(root)
         from cluster_tools_tpu_torch.utils.synthetic import (
             as_uint8, synthetic_instance)
 
+        phase("3", card_vs_cpu, root, SMALL_SHAPE, SMALL_BLOCK)
+        record, gt = phase("4", main_path, root, FULL_SHAPE, BLOCK)
+        phase("5", split_card_vs_cpu, root, SMALL_SHAPE, SMALL_BLOCK)
+        split = phase("6", split_path, root, FULL_SHAPE, BLOCK, gt)
+        ckpt = make_checkpoint(root)
         raw = as_uint8(synthetic_instance(INF_SHAPE, seed=3)[1])
-        unet_card_vs_cpu(ckpt, raw)
-        inf_store, _ = inference_card_vs_cpu(root, ckpt, raw)
-        mws_card_vs_cpu(root)
-        config5_chain(root, inf_store, ckpt)
-        inference_path(root, ckpt)
-        mws_path(root, gt)
+        phase("7a", unet_card_vs_cpu, ckpt, raw)
+        inf_store, _ = phase("7b", inference_card_vs_cpu, root, ckpt, raw)
+        phase("7c", mws_card_vs_cpu, root)
+        phase("7d", config5_chain, root, inf_store, ckpt)
+        phase("8a", inference_path, root, ckpt)
+        phase("8b", mws_path, root, gt)
         # phases 9-10 lie on no kernel of the port
         kernels.reset_counts()
         small = blob_volume(SMALL_SHAPE, seed=1)
-        ops_card_vs_cpu(small)
-        cc_card_vs_cpu(root, small, SMALL_SHAPE, SMALL_BLOCK)
+        phase("9a", ops_card_vs_cpu, small)
+        phase("9b", cc_card_vs_cpu, root, small, SMALL_SHAPE, SMALL_BLOCK)
         gt_small, bnd_small = synthetic_instance(SMALL_SHAPE, seed=2)
-        stitch_eval_card_vs_cpu(root, gt_small, bnd_small, SMALL_BLOCK)
-        cc_path(root)
-        eval_path(root, gt, split["quality"])
-        stitch_path(root, gt)
+        phase("9c", stitch_eval_card_vs_cpu, root, gt_small, bnd_small,
+              SMALL_BLOCK)
+        phase("10a", cc_path, root)
+        phase("10b", eval_path, root, gt, split["quality"])
+        phase("10c", stitch_path, root, gt)
         late = kernels.counts()
         log(f"phases 9-10 kernel launches {json.dumps(late)}")
         if late["minplus"] != 0:
             raise AssertionError("phases 9-10 launched the min-plus kernel")
+        # phases 11-12: the fused task's other executions, the split
+        # watershed's options, the lifted and agglomerative segmentations
+        gt11, bnd11 = synthetic_instance(P11_SHAPE, seed=1)
+        data11 = as_uint8(bnd11)
+        phase("11a", variants_card_vs_cpu, root, data11, P11_BLOCK)
+        phase("11b", ws_options_card_vs_cpu, root, data11, gt11,
+              as_uint8(synthetic_instance(FLOOD_SHAPE, seed=4)[1]))
+        phase("11c", lifted_agglo_card_vs_cpu, root, data11, gt11)
+        crop_store, gt_crop = write_crop(root, BLOCK, gt)
+        variant_launches = phase("12a", variants_path, root, crop_store,
+                                 BLOCK, gt_crop)
+        crop_launches = phase("12bc", crop_paths, root, crop_store, BLOCK,
+                              gt_crop)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     k = kernels.KERNELS["minplus"]
+    by_phase = {"4": record["launches"][k.name],
+                "6": split["launches"][k.name],
+                **{f"12a-{m}": n for m, n in variant_launches.items()},
+                **{f"12b-{m}": n for m, n in crop_launches.items()}}
     line = {"kernels": [{
         "name": k.name, "route": k.route, "source": k.source,
         "replaces": k.replaces,
-        # the main paths' runs: the fused chain and the split chain
-        "launches": record["launches"][k.name] + split["launches"][k.name],
+        # the main paths' runs: the fused chain, the split chain, the fused
+        # chain's hybrid and legacy executions, the watershed's options
+        "launches": sum(by_phase.values()),
+        "launches_by_phase": by_phase,
         "max_abs_err": max_err,
         # one EDT of the main path: the three axis products of a block
         "ms": sum(r["ms"] for r in timed),
         "plain_ms": sum(r["plain_ms"] for r in timed),
         "bound_ms": sum(r["bound_ms"] for r in timed),
         "bound_by": "bytes", "library_ms": None}]}
+    log(f"script elapsed_s {time.perf_counter() - started}")
     log(info)
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ multicut chains — the split chain (``WatershedWorkflow`` ->
 with block stitching (``ThresholdedComponentsWorkflow``), overlap and
 problem-based stitching (``StitchingWorkflow``,
 ``StitchingAssignmentsWorkflow``, ``SimpleStitchingWorkflow``), node
-labels and evaluation (``NodeLabelWorkflow``, ``EvaluationWorkflow``).
-Plain PyTorch for the device code, a
+labels and evaluation (``NodeLabelWorkflow``, ``EvaluationWorkflow``);
+the lifted multicut and agglomerative clustering segmentations
+(``LiftedMulticutSegmentationWorkflow``,
+``AgglomerativeClusteringWorkflow``).  Plain PyTorch for the device code, a
 hand-written CUDA kernel where the JAX package had a Pallas kernel
 (``csrc/``), and the same task configs, container formats and outputs.
 Device tasks run on the global config's ``"device"`` (default
@@ -23,20 +25,12 @@ from .core.workflow import Task, DummyTask, build
 from .core.runtime import BlockTask, FailedJobsError
 from .core.blocking import Blocking, blocks_in_volume, block_to_bb
 from .core.storage import file_reader
-from .workflows import (EvaluationWorkflow, InferenceTask,
-                        MulticutSegmentationWorkflow, MwsWorkflow,
-                        NodeLabelWorkflow, ProblemWorkflow,
-                        SimpleStitchingWorkflow,
-                        StitchingAssignmentsWorkflow, StitchingWorkflow,
-                        ThresholdedComponentsWorkflow, TwoPassMwsWorkflow,
-                        WatershedWorkflow)
+# the ported workflow surface (reference: cluster_tools/__init__.py:1-9)
+from .workflows import *  # noqa: F401,F403
+from .workflows import EvaluationWorkflow, NodeLabelWorkflow  # noqa: F401
+from . import workflows as _workflows
 
 __all__ = [
     "Task", "DummyTask", "build", "BlockTask", "FailedJobsError",
     "Blocking", "blocks_in_volume", "block_to_bb", "file_reader",
-    "EvaluationWorkflow", "InferenceTask", "MulticutSegmentationWorkflow",
-    "MwsWorkflow", "NodeLabelWorkflow", "ProblemWorkflow",
-    "SimpleStitchingWorkflow", "StitchingAssignmentsWorkflow",
-    "StitchingWorkflow", "ThresholdedComponentsWorkflow",
-    "TwoPassMwsWorkflow", "WatershedWorkflow",
-]
+] + list(_workflows.__all__)

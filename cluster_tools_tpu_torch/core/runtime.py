@@ -632,6 +632,25 @@ class BlockTask(Task):
             return list(self.block_shape_override)
         return list(self.global_config["block_shape"])
 
+    def resolve_n_labels(self, labels_path: str = "",
+                         labels_key: str = "") -> int:
+        """``self.n_labels``, resolved from the labels dataset's maxId at
+        RUN time when unset (requires() runs at DAG-construction time,
+        before upstream tasks have produced the volume)."""
+        if getattr(self, "n_labels", None) is None:
+            from .storage import read_max_id
+
+            self.n_labels = read_max_id(
+                labels_path or getattr(self, "labels_path", ""),
+                labels_key or getattr(self, "labels_key", "")) + 1
+        return self.n_labels
+
+    @staticmethod
+    def id_chunks(n_items: int, chunk: int) -> List[int]:
+        """Shard a 1-D id space into chunk indices (label-space sharding,
+        SURVEY §2.4.5); always at least one chunk."""
+        return list(range((n_items + chunk - 1) // chunk or 1))
+
     def blocks_in_volume(self, shape, block_shape=None) -> List[int]:
         from .blocking import blocks_in_volume
 

@@ -51,6 +51,20 @@ def load() -> ctypes.CDLL:
         lib.mws_clustering_sorted.argtypes = [i64, i64, p_i32, p_i32, p_u8,
                                               p_u64]
         lib.mws_clustering_sorted.restype = i64
+        lib.lmc_gaec.argtypes = [i64, i64, p_i64, p_f64, i64, p_i64, p_f64,
+                                 p_u64]
+        lib.lmc_gaec.restype = i64
+        lib.lmc_kl_refine.argtypes = [i64, i64, p_i64, p_f64, i64, p_i64,
+                                      p_f64, p_u64, i64, ctypes.c_double]
+        lib.lmc_kl_refine.restype = i64
+        lib.agglomerate_edge_weighted.argtypes = [
+            i64, i64, p_i64, p_f64, p_f64, p_f64, ctypes.c_double,
+            ctypes.c_double, p_u64]
+        lib.agglomerate_edge_weighted.restype = i64
+        lib.seeded_watershed_u8.argtypes = [p_u8, i64, i64, i64, p_i64]
+        lib.seeded_watershed_u8.restype = None
+        lib.size_filter_u8.argtypes = [p_u8, i64, i64, i64, p_i64, i64]
+        lib.size_filter_u8.restype = None
         _lib = lib
         return _lib
 
@@ -147,4 +161,128 @@ def mutex_clustering_sorted(n_nodes: int, u: np.ndarray, v: np.ndarray,
         raise ValueError("u, v and mutex_flag need one entry per edge")
     out = np.empty(n_nodes, dtype=np.uint64)
     load().mws_clustering_sorted(n_nodes, len(u), u, v, mutex_flag, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lifted multicut
+# ---------------------------------------------------------------------------
+
+def lifted_multicut_gaec(n_nodes: int, uv_ids: np.ndarray, costs: np.ndarray,
+                         lifted_uv_ids: np.ndarray,
+                         lifted_costs: np.ndarray) -> np.ndarray:
+    """Greedy additive contraction for the lifted multicut objective
+    (nifty liftedMulticutGreedyAdditive equivalent): only local edges are
+    contracted; priorities include the lifted cost between components."""
+    uv = _as_uv(uv_ids)
+    luv = _as_uv(lifted_uv_ids)
+    c = np.ascontiguousarray(costs, dtype=np.float64)
+    lc = np.ascontiguousarray(lifted_costs, dtype=np.float64)
+    if len(c) != len(uv) or len(lc) != len(luv):
+        raise ValueError("one cost per edge needed")
+    out = np.empty(n_nodes, dtype=np.uint64)
+    load().lmc_gaec(n_nodes, len(uv), uv, c, len(luv), luv, lc, out)
+    return out
+
+
+def lifted_multicut_kernighan_lin(n_nodes: int, uv_ids: np.ndarray,
+                                  costs: np.ndarray,
+                                  lifted_uv_ids: np.ndarray,
+                                  lifted_costs: np.ndarray,
+                                  warmstart: bool = True,
+                                  max_passes: int = 50,
+                                  time_limit: float = 0.0) -> np.ndarray:
+    """Lifted GAEC warmstart + KL-style node moves over the lifted objective
+    (nifty liftedMulticutKernighanLin equivalent)."""
+    uv = _as_uv(uv_ids)
+    luv = _as_uv(lifted_uv_ids)
+    c = np.ascontiguousarray(costs, dtype=np.float64)
+    lc = np.ascontiguousarray(lifted_costs, dtype=np.float64)
+    labels = (lifted_multicut_gaec(n_nodes, uv, c, luv, lc) if warmstart
+              else np.zeros(n_nodes, dtype=np.uint64))
+    labels = np.ascontiguousarray(labels, dtype=np.uint64)
+    load().lmc_kl_refine(n_nodes, len(uv), uv, c, len(luv), luv, lc, labels,
+                         max_passes, float(time_limit or 0.0))
+    return labels
+
+
+def lifted_objective(uv_ids: np.ndarray, costs: np.ndarray,
+                     lifted_uv_ids: np.ndarray, lifted_costs: np.ndarray,
+                     labels: np.ndarray) -> float:
+    """Sum of local and lifted costs over cut pairs (the minimized
+    energy)."""
+    uv = _as_uv(uv_ids)
+    luv = _as_uv(lifted_uv_ids)
+    e = float(np.asarray(costs)[labels[uv[:, 0]] != labels[uv[:, 1]]].sum())
+    if len(luv):
+        e += float(np.asarray(lifted_costs)[
+            labels[luv[:, 0]] != labels[luv[:, 1]]].sum())
+    return e
+
+
+# ---------------------------------------------------------------------------
+# agglomerative clustering
+# ---------------------------------------------------------------------------
+
+def agglomerative_clustering(n_nodes: int, uv_ids: np.ndarray,
+                             edge_weights: np.ndarray,
+                             edge_sizes: Optional[np.ndarray] = None,
+                             node_sizes: Optional[np.ndarray] = None,
+                             threshold: float = 0.5,
+                             size_regularizer: float = 0.0) -> np.ndarray:
+    """Edge-weighted agglomeration of a RAG: merge the lowest size-weighted
+    mean boundary weight while it is below ``threshold``
+    (nifty.graph.agglo edgeWeighted/mala cluster-policy equivalent,
+    reference: utils/segmentation_utils.py:298-321).  Returns dense
+    labels."""
+    uv = _as_uv(uv_ids)
+    w = np.ascontiguousarray(edge_weights, dtype=np.float64)
+    es = np.ascontiguousarray(
+        edge_sizes if edge_sizes is not None else np.ones(len(uv)),
+        dtype=np.float64)
+    ns = np.ascontiguousarray(
+        node_sizes if node_sizes is not None else np.ones(n_nodes),
+        dtype=np.float64)
+    if not len(w) == len(es) == len(uv) or len(ns) != n_nodes:
+        raise ValueError("one weight and size per edge and one size per "
+                         "node needed")
+    out = np.empty(n_nodes, dtype=np.uint64)
+    load().agglomerate_edge_weighted(n_nodes, len(uv), uv, w, es, ns,
+                                     float(threshold),
+                                     float(size_regularizer), out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# host watershed
+# ---------------------------------------------------------------------------
+
+def seeded_watershed_u8(height: np.ndarray, seeds: np.ndarray) -> np.ndarray:
+    """Seeded 3d priority-flood watershed over a uint8 height map — the
+    vigra ``watershedsNew`` algorithm (reference: utils/volume_utils.py:124)
+    as a C++ monotone bucket-queue flood.  Returns int64 labels (seeds
+    preserved, every seed-connected voxel labeled, 6-connectivity;
+    negative seeds are barriers the flood never enters)."""
+    if height.ndim != 3:
+        raise ValueError("seeded_watershed_u8 expects a 3d volume")
+    hq = np.ascontiguousarray(height, dtype=np.uint8)
+    labels = np.ascontiguousarray(seeds, dtype=np.int64).copy()
+    if labels.shape != hq.shape:
+        raise ValueError("seeds and height need the same shape")
+    load().seeded_watershed_u8(hq, *hq.shape, labels)
+    return labels
+
+
+def size_filter_u8(height: np.ndarray, labels: np.ndarray,
+                   min_size: int) -> np.ndarray:
+    """Remove fragments below ``min_size`` and regrow their voxels from
+    the surviving neighborhood by a LOCAL priority flood (touches only the
+    removed voxels; the reference regrows with a second full watershed)."""
+    if height.ndim != 3:
+        raise ValueError("size_filter_u8 expects a 3d volume")
+    hq = np.ascontiguousarray(height, dtype=np.uint8)
+    out = np.ascontiguousarray(labels, dtype=np.int64).copy()
+    if out.shape != hq.shape:
+        raise ValueError("labels and height need the same shape")
+    load().size_filter_u8(hq, *hq.shape, out, int(min_size))
     return out

@@ -164,11 +164,12 @@ def connected_components(mask: torch.Tensor, connectivity: int = 1,
 
 
 def connected_components_batched(masks: torch.Tensor,
-                                 connectivity: int = 1) -> torch.Tensor:
-    """Hooking CC over a batch of equally shaped blocks (leading batch
-    axis): neighbors on the spatial axes only, each block's linear
-    indices starting at 0."""
-    return _label(masks, connectivity, 0, "hooking")[0]
+                                 connectivity: int = 1,
+                                 method: str = "hooking") -> torch.Tensor:
+    """CC over a batch of equally shaped blocks (leading batch axis, the
+    JAX package's ``vmap``): neighbors on the spatial axes only, each
+    block's linear indices starting at 0."""
+    return _label(masks, connectivity, 0, method)[0]
 
 
 def relabel_consecutive(

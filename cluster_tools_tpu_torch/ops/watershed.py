@@ -12,9 +12,12 @@ utils/volume_utils.py:123-139):
   tables; demand beyond them clears the returned ``ok`` flag.
 * :func:`coarse` (``_coarse_impl``): the same solve on a ``factor``-times
   coarser grid, upsampled and refined with steepest-descent sweeps.
+* :func:`seeded_watershed_flood`: the quantized priority flood
+  (``method="flood"``), the level-ordered formulation.
 * :func:`dense_relabel`, :func:`extent_valid_mask`, :func:`seeded_watershed`
-  (masked or not) and :func:`size_filter` (the split chain's per-block
-  watershed and the fused chain's host fallback).
+  (masked or not, either method), :func:`seeded_watershed_batched` (per
+  z-slice) and :func:`size_filter` (the split chain's per-block watershed
+  and the fused chain's host fallback).
 
 Tie-breaking is lexicographic on (height, linear index), so given the same
 height and seeds the labels equal the JAX package's exactly.  Where JAX
@@ -28,6 +31,7 @@ stays converged, so the result is the same).
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -98,17 +102,20 @@ def _segment_min(values: torch.Tensor, segs: torch.Tensor, num: int,
 
 def basins(height: torch.Tensor, seeds: torch.Tensor,
            mask: Optional[torch.Tensor], connectivity: int, max_rounds: int,
-           min_size: int, b_cap: int, k_cap: int
+           min_size: int, b_cap: int, k_cap: int, offsets=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Basin-merging seeded watershed (``_basins_impl``); returns
-    ``(labels int32, ok bool tensor)``."""
+    ``(labels int32, ok bool tensor)``.  ``offsets`` replaces the
+    neighborhood of ``connectivity`` (the per-slice watershed passes the
+    in-plane offsets of a stack)."""
     shape = tuple(height.shape)
     dev = height.device
     n = int(np.prod(shape))
     height = height.to(torch.float32)
     mask = (torch.ones(shape, dtype=torch.bool, device=dev) if mask is None
             else mask.to(torch.bool))
-    offsets = _neighbor_offsets(len(shape), connectivity)
+    if offsets is None:
+        offsets = _neighbor_offsets(len(shape), connectivity)
     big = _F32_MAX
 
     h = torch.where(mask, height, big)
@@ -228,19 +235,174 @@ def basins(height: torch.Tensor, seeds: torch.Tensor,
 
 def seeded_watershed(height: torch.Tensor, seeds: torch.Tensor,
                      mask: Optional[torch.Tensor] = None,
-                     connectivity: int = 1, max_rounds: int = 64,
-                     min_size: int = 0) -> torch.Tensor:
-    """Basin-merging watershed with the natural-volume capacities, re-run
-    at the exact worst-case capacities when they overflow (the JAX
-    package's ``seeded_watershed_basins``)."""
+                     connectivity: int = 1, max_iter: int = 0,
+                     method: Optional[str] = None) -> torch.Tensor:
+    """Grow ``seeds`` (int labels, 0 = unlabeled) over ``height`` restricted
+    to ``mask``; int32 labels, 0 only outside the mask.
+
+    ``method``: ``"basins"`` (the default; the environment's
+    ``CTT_WS_METHOD`` overrides it, as in the JAX package) — the
+    basin-merging watershed at the natural-volume capacities, re-run at the
+    exact worst-case capacities when they overflow — or ``"flood"``, the
+    quantized priority flood (:func:`seeded_watershed_flood`, bounded by
+    ``max_iter``)."""
+    method = method or os.environ.get("CTT_WS_METHOD", "basins")
+    if method == "flood":
+        return seeded_watershed_flood(height, seeds, mask, connectivity,
+                                      max_iter)
+    if method != "basins":
+        raise ValueError(f"unknown watershed method {method!r} "
+                         "(expected 'basins' or 'flood')")
+    return _basins_retry(height, seeds, mask, connectivity)
+
+
+def _basins_retry(height, seeds, mask, connectivity, offsets=None):
+    """:func:`basins` at the natural-volume capacities, re-run at the
+    exact worst-case capacities when they overflow."""
     n = int(np.prod(height.shape))
-    labels, ok = basins(height, seeds, mask, connectivity, max_rounds,
-                        min_size, max(n // 64, 1024), max(n // 8, 4096))
+    labels, ok = basins(height, seeds, mask, connectivity, 64, 0,
+                        max(n // 64, 1024), max(n // 8, 4096), offsets)
     if bool(ok):
         return labels
-    labels, _ = basins(height, seeds, mask, connectivity, max_rounds,
-                       min_size, n // 2 + 2, n)
+    labels, _ = basins(height, seeds, mask, connectivity, 64, 0,
+                       n // 2 + 2, n, offsets)
     return labels
+
+
+#: flood bodies run between two host reads of the loop condition
+FLOOD_CHECK_EVERY = 8
+
+
+def seeded_watershed_flood(height: torch.Tensor, seeds: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None,
+                           connectivity: int = 1,
+                           max_iter: int = 0) -> torch.Tensor:
+    """Level-ordered (quantized priority flood) seeded watershed — the
+    JAX package's ``seeded_watershed_flood``: a steepest-descent forest
+    resolved by pointer jumping, then a 256-level flood (at each water
+    level the unlabeled voxels at or below it adopt their lowest labeled
+    neighbor's label until stable, then the level jumps to the lowest one
+    on the frontier), then a backstop fill.
+
+    The JAX package runs three ``while_loop`` loops.  Here the loop condition
+    is read on the host every :data:`FLOOD_CHECK_EVERY` bodies; jumping and
+    the fill reach fixed points, so their extra bodies change nothing, and
+    every extra flood body is gated on the condition (a device bool), so
+    the labels equal the JAX package's."""
+    shape = tuple(height.shape)
+    dev = height.device
+    n = int(np.prod(shape))
+    height = height.to(torch.float32)
+    mask = (torch.ones(shape, dtype=torch.bool, device=dev) if mask is None
+            else mask.to(torch.bool))
+    if max_iter == 0:
+        # the fill advances one voxel per body along geodesic paths, so the
+        # only data-independent bound is the voxel count
+        max_iter = max(n, 32)
+    offsets = _neighbor_offsets(len(shape), connectivity)
+    big = _F32_MAX
+
+    h = torch.where(mask, height, big)
+    seeded = (seeds > 0) & mask
+    h = torch.where(seeded, -big, h)
+    flat_idx = torch.arange(n, dtype=torch.int32, device=dev).reshape(shape)
+    # steepest-descent pointer: the strictly lowest neighbor, ties toward
+    # the lower linear index
+    best_h, best_i = h, flat_idx
+    for off in offsets:
+        nh = _shifted(h, off, big)
+        ni = _shifted(flat_idx, off, n)
+        better = (nh < best_h) | ((nh == best_h) & (ni < best_i) & (nh < h))
+        best_h = torch.where(better, nh, best_h)
+        best_i = torch.where(better, ni, best_i)
+    parent = torch.where(mask, best_i, flat_idx).reshape(-1)
+    parent = torch.where(seeded.reshape(-1), flat_idx.reshape(-1), parent)
+    parent = _jump(parent, bound=max_iter)
+
+    seed_flat = seeds.to(torch.int32).reshape(-1)
+    labels = torch.where(mask.reshape(-1), seed_flat[parent.long()], 0)
+
+    n_levels = 256
+    hg = torch.where(mask, height, big)
+    h_lo = hg.min()
+    h_hi = torch.where(mask, height, -big).max()
+    hq = ((hg - h_lo) / torch.clamp(h_hi - h_lo, min=1e-6)
+          * float(n_levels - 1)).to(torch.int32).clamp(0, n_levels - 1)
+    hq = torch.where(mask, hq, n_levels)
+    shifted_h = [_shifted(hg, off, big) for off in offsets]
+
+    def lowest_labeled_neighbor(lab_g):
+        nbr_h = torch.full(shape, big, dtype=torch.float32, device=dev)
+        nbr_l = torch.zeros(shape, dtype=torch.int32, device=dev)
+        for off, oh in zip(offsets, shifted_h):
+            ol = _shifted(lab_g, off, 0)
+            cand = (ol > 0) & (oh < nbr_h)
+            nbr_h = torch.where(cand, oh, nbr_h)
+            nbr_l = torch.where(cand, ol, nbr_l)
+        return nbr_l
+
+    def flood_body(lab, level):
+        lab_g = lab.reshape(shape)
+        nbr_l = lowest_labeled_neighbor(lab_g)
+        free = (lab_g == 0) & mask & (nbr_l > 0)
+        new = torch.where(free & (hq <= level), nbr_l, lab_g).reshape(-1)
+        changed = (new != lab).any()
+        # stable at this water level -> jump to the lowest level on the
+        # frontier
+        next_level = torch.where(free, hq, n_levels).min()
+        level = torch.where(changed, level,
+                            torch.maximum(level + 1, next_level))
+        return new, level
+
+    level = torch.zeros((), dtype=torch.int32, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    bound = max_iter + n_levels
+    while True:
+        for _ in range(FLOOD_CHECK_EVERY):
+            active = (level < n_levels) & (it < bound)
+            new, new_level = flood_body(labels, level)
+            labels = torch.where(active, new, labels)
+            level = torch.where(active, new_level, level)
+            it = it + active.to(torch.int32)
+        if not bool((level < n_levels) & (it < bound)):
+            break
+
+    # backstop only: does work solely if the flood's bound was hit early
+    it = 0
+    while it < max_iter:
+        for _ in range(min(FLOOD_CHECK_EVERY, max_iter - it)):
+            lab_g = labels.reshape(shape)
+            nbr_l = lowest_labeled_neighbor(lab_g)
+            adopt = (lab_g == 0) & mask & (nbr_l > 0)
+            prev = labels
+            labels = torch.where(adopt, nbr_l, lab_g).reshape(-1)
+            it += 1
+        if not bool((labels != prev).any()):
+            break
+    return labels.reshape(shape)
+
+
+def seeded_watershed_batched(heights: torch.Tensor, seeds: torch.Tensor,
+                             masks: Optional[torch.Tensor] = None,
+                             connectivity: int = 1,
+                             method: Optional[str] = None) -> torch.Tensor:
+    """Per-slice seeded watershed over the leading axis (the JAX package
+    maps it with ``vmap``): each slice solved alone.  ``basins`` runs once
+    over the stack with the in-plane neighborhood only: no voxel sees
+    another slice, every tie-break compares indices and group ids within
+    one slice (whose order a slice's offset keeps), and the capacities
+    change no result they hold; ``flood`` quantizes each slice's own
+    height range, so it loops over the slices."""
+    method = method or os.environ.get("CTT_WS_METHOD", "basins")
+    if method == "basins":
+        offsets = tuple((0,) + o for o in _neighbor_offsets(
+            heights.dim() - 1, connectivity))
+        return _basins_retry(heights, seeds, masks, connectivity, offsets)
+    return torch.stack([
+        seeded_watershed(heights[i], seeds[i],
+                         None if masks is None else masks[i], connectivity,
+                         method=method)
+        for i in range(heights.shape[0])])
 
 
 def coarse(height: torch.Tensor, seeds: torch.Tensor, min_size: int,
@@ -308,17 +470,20 @@ def coarse(height: torch.Tensor, seeds: torch.Tensor, min_size: int,
 
 
 def size_filter(labels: np.ndarray, height: torch.Tensor,
-                size_threshold: int,
-                mask: Optional[torch.Tensor] = None) -> np.ndarray:
+                size_threshold: int, mask: Optional[torch.Tensor] = None,
+                connectivity: int = 1, per_slice: bool = False
+                ) -> np.ndarray:
     """Remove fragments smaller than ``size_threshold`` and regrow the
     remaining seeds over the height map within ``mask`` (a boolean tensor
     on the height map's device; reference:
     utils/volume_utils.py:123-139 watershed-and-size-filter).  Host-side
-    counting + one watershed pass on the height map's device."""
+    counting + one watershed pass on the height map's device;
+    ``per_slice`` regrows each z-slice on its own (the 2d watershed)."""
     labels = np.asarray(labels)
     flat = labels.ravel()
     uniques, inverse, counts = np.unique(flat, return_inverse=True,
                                          return_counts=True)
+    inverse = inverse.reshape(-1)
     small = (counts < size_threshold) & (uniques != 0)
     if not small.any():
         return labels
@@ -328,8 +493,9 @@ def size_filter(labels: np.ndarray, height: torch.Tensor,
     nz = uniques[(uniques != 0) & ~small]
     seed_ids = np.searchsorted(nz, keep).astype("int32") + 1
     seed_ids[keep == 0] = 0
-    out = seeded_watershed(height, torch.from_numpy(seed_ids).to(
-        height.device), mask).cpu().numpy()
+    grow = seeded_watershed_batched if per_slice else seeded_watershed
+    out = grow(height, torch.from_numpy(seed_ids).to(height.device), mask,
+               connectivity).cpu().numpy()
     restored = np.zeros(out.shape, dtype=labels.dtype)
     fg = out > 0
     restored[fg] = nz[out[fg] - 1]

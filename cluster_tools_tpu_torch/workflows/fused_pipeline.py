@@ -26,10 +26,20 @@ block's ids do not exist yet — so a cheap host task (FusedFaceAssembly)
 adds them afterwards from the staged planes, completing the per-block
 sub-graphs in the exact format the merge/solve stack consumes.
 
+``ws_method`` picks the execution: ``"device"`` (the default, above),
+``"hybrid"`` (device stage A — normalize, EDT, filters, seeds — then the
+host C++ priority flood and size filter, then device stage B — interior
+pairs and edge statistics — one block behind, so block i's stage B runs
+on the card while block i+1 floods on the host), or ``"legacy"`` (one
+upload per block and the basins watershed on the card, the JAX package's
+per-block chain; a store that is not 3-d takes this path).  Neither
+``hybrid`` nor ``legacy`` stages fragments in RAM: face assembly reads
+them from the store.
+
 The device is the global config's ``"device"`` (default ``"cuda"``): a run
 that asks for the card on a machine without one raises; nothing falls back
-to the CPU.  ``ws_method`` ``hybrid`` and ``legacy`` and ``mesh_resident``
-are not ported (ROADMAP A7b, A14) and raise.
+to the CPU, and ``hybrid`` raises without a C++ compiler.
+``mesh_resident`` is not ported (ROADMAP A14) and raises.
 """
 
 from __future__ import annotations
@@ -140,6 +150,117 @@ class ResidentParams:
     coarse_factor: int = 2
 
 
+def _normalized(x: torch.Tensor) -> torch.Tensor:
+    """Raw uint8 boundaries to the [0, 1] float scale (a multiply by the
+    float32 reciprocal, as XLA computes the JAX package's ``* (1/255)``);
+    float blocks arrive normalized."""
+    return x.to(torch.float32) * (1.0 / 255.0) if x.dtype == torch.uint8 \
+        else x
+
+
+def _height_and_seeds(xf: torch.Tensor, p: "ResidentParams"):
+    """The front of every per-block chain: EDT (the CUDA kernel on the
+    card), the height map blending the (smoothed) boundaries with the
+    inverted DT, and the seeds — connected maxima of the smoothed DT."""
+    from ..ops.components import connected_components
+    from ..ops.edt import distance_transform_edt
+    from ..ops.filters import gaussian, local_maxima
+
+    fg = xf < p.threshold
+    dt = distance_transform_edt(fg)
+    hmap = gaussian(xf, p.sigma_weights) if p.sigma_weights else xf
+    height = p.alpha * hmap + (1.0 - p.alpha) * (
+        1.0 - dt / torch.clamp(dt.max(), min=1e-6))
+    dt_smooth = gaussian(dt, p.sigma_seeds) if p.sigma_seeds else dt
+    maxima = local_maxima(dt_smooth, radius=2) & fg
+    seeds = connected_components(maxima, connectivity=3,
+                                 method="propagation")
+    return height, seeds
+
+
+def _stats_table(dense_inner: torch.Tensor, xf_inner: torch.Tensor,
+                 e_max: int, head) -> torch.Tensor:
+    """Interior pairs (two samples per face) of the dense inner labels,
+    compacted, and their sorted-position edge statistics, packed into one
+    float64 table: row 0 ``head + [n_runs, overflow]``, rows 1.. ``[u, v,
+    feats...]`` (float64 holds every id and float32 feature exactly)."""
+    from ..ops.rag import boundary_pair_values, compact_valid, \
+        edge_stats_device
+
+    u, v, vals, okp = boundary_pair_values(dense_inner, xf_inner)
+    n = int(u.shape[0])
+    cap = max(1 << max(int(np.ceil(np.log2(max(n // 6, 1)))), 14), 1 << 14)
+    (cu, cv, cvals), cok, cap_overflow = compact_valid(okp, [u, v, vals],
+                                                       cap)
+    uv, feats, n_runs, e_overflow = edge_stats_device(cu, cv, cvals, cok,
+                                                      e_max=e_max)
+    f64 = torch.float64
+    meta = torch.stack([h.to(f64) for h in head]
+                       + [n_runs.to(f64), (e_overflow + cap_overflow).to(f64)])
+    body = torch.cat([uv.to(f64), feats.to(f64)], dim=1)
+    meta_row = torch.zeros((1, body.shape[1]), dtype=f64, device=body.device)
+    meta_row[0, :meta.shape[0]] = meta
+    return torch.cat([meta_row, body], dim=0)
+
+
+def legacy_block(x: torch.Tensor, extent: Sequence[int],
+                 p: "ResidentParams"):
+    """The JAX package's per-block upload chain (``_fused_program``) on one
+    uploaded outer block ``x``: the front, the full-resolution basins
+    watershed with the fused size filter, the dense relabel of the inner
+    block (the padded remainder past ``extent`` masked out) and the edge
+    statistics.  Returns ``(tbl, dense_grid)``: ``tbl`` float64 with row 0
+    ``[k, ok, n_runs, overflow]`` (:func:`_stats_table`)."""
+    from ..ops.watershed import basins, dense_relabel, extent_valid_mask
+
+    n_outer = int(np.prod(p.outer_shape))
+    inner_sl = tuple(slice(h, o - h) for h, o in zip(p.halo, p.outer_shape))
+    xf = _normalized(x)
+    height, seeds = _height_and_seeds(xf, p)
+    ws, ok = basins(height, seeds, None, 1, 64, p.min_size,
+                    max(n_outer // 64, 1024), max(n_outer // 8, 4096))
+    inner = ws[inner_sl]
+    valid = extent_valid_mask(inner.shape, extent, device=x.device)
+    dense_grid, k = dense_relabel(inner, n_outer, valid=valid)
+    tbl = _stats_table(dense_grid, xf[inner_sl], p.e_max, [k, ok])
+    return tbl, dense_grid
+
+
+def hybrid_pre(x: torch.Tensor, p: "ResidentParams", seed_cap: int):
+    """Hybrid stage A (``_hybrid_pre_program``): the front on the card,
+    returning the height quantized to uint8 (round half to even, as
+    ``jnp.round``) and the seeds as COO — the linear position and id of
+    the first ``seed_cap`` seed voxels in index order — plus the seed-voxel
+    count (more than ``seed_cap`` is an overflow the caller raises on)."""
+    xf = _normalized(x)
+    height, seeds = _height_and_seeds(xf, p)
+    hq = torch.clamp(torch.round(height * 255.0), 0, 255).to(torch.uint8)
+    sflat = seeds.reshape(-1)
+    n = sflat.shape[0]
+    has = sflat > 0
+    tgt = torch.cumsum(has.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_seeds = tgt[-1:] + 1
+    # slot seed_cap takes every voxel that is no seed or past the capacity
+    # (its content is discarded): no host sync for the compaction
+    tgt = torch.where(has & (tgt < seed_cap), tgt, seed_cap).long()
+    pos = torch.zeros(seed_cap + 1, dtype=torch.int32, device=x.device)
+    pos.scatter_(0, tgt, torch.arange(n, dtype=torch.int32,
+                                      device=x.device))
+    sid = torch.zeros(seed_cap + 1, dtype=torch.int32, device=x.device)
+    sid.scatter_(0, tgt, sflat.to(torch.int32))
+    return hq, pos[:seed_cap], sid[:seed_cap], n_seeds
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host block on ``device``: through pinned memory with an
+    asynchronous copy on the card (a pageable copy would wait for the
+    stream's earlier work)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def resident_block(vol: torch.Tensor, origin: Sequence[int],
                    extent: Sequence[int], p: ResidentParams):
     """The whole chain for one block of the resident padded volume ``vol``
@@ -151,9 +272,6 @@ def resident_block(vol: torch.Tensor, origin: Sequence[int],
     feats...]`` (every value exact in float32: ids < 2^15, counts <
     2^24) — ``packed`` the int64 run-length stream and ``dense_grid`` the
     int32 dense inner labels."""
-    from ..ops.components import connected_components
-    from ..ops.edt import distance_transform_edt
-    from ..ops.filters import gaussian, local_maxima
     from ..ops.rag import (boundary_pair_values, boundary_pair_values_dual,
                            compact_valid, edge_stats_device,
                            edge_stats_hist_packed)
@@ -164,16 +282,8 @@ def resident_block(vol: torch.Tensor, origin: Sequence[int],
     outer = p.outer_shape
     inner_sl = tuple(slice(h, o - h) for h, o in zip(p.halo, outer))
     x = vol[tuple(slice(o, o + s) for o, s in zip(origin, outer))]
-    xf = x.to(torch.float32) * (1.0 / 255.0) if p.is_u8 else x
-    fg = xf < p.threshold
-    dt = distance_transform_edt(fg)
-    hmap = gaussian(xf, p.sigma_weights) if p.sigma_weights else xf
-    height = p.alpha * hmap + (1.0 - p.alpha) * (
-        1.0 - dt / torch.clamp(dt.max(), min=1e-6))
-    dt_smooth = gaussian(dt, p.sigma_seeds) if p.sigma_seeds else dt
-    maxima = local_maxima(dt_smooth, radius=2) & fg
-    seeds = connected_components(maxima, connectivity=3,
-                                 method="propagation")
+    xf = _normalized(x)
+    height, seeds = _height_and_seeds(xf, p)
     ws, ok = coarse(height, seeds, p.min_size, p.refine_rounds,
                     p.coarse_factor, dense_ids=True)
 
@@ -234,28 +344,27 @@ def resident_block(vol: torch.Tensor, origin: Sequence[int],
     return tbl, packed, dense_grid
 
 
-class _BlockResult:
-    """A submitted block: its device outputs, pinned host copies of the
-    table and the run-length stream, and the event that marks the copies
-    done."""
+class _Download:
+    """Pinned host copies of device tensors, started with
+    ``non_blocking=True`` when the download is created, and the one CUDA
+    event that marks them done (on the CPU: the tensors themselves)."""
 
-    def __init__(self, tbl, packed, dense_grid):
-        self.dense_grid = dense_grid
-        if tbl.device.type == "cuda":
-            self.tbl = torch.empty(tbl.shape, dtype=tbl.dtype,
-                                   pin_memory=True)
-            self.packed = torch.empty(packed.shape, dtype=packed.dtype,
-                                      pin_memory=True)
-            self.tbl.copy_(tbl, non_blocking=True)
-            self.packed.copy_(packed, non_blocking=True)
+    def __init__(self, *tensors):
+        if tensors[0].device.type == "cuda":
+            self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.tbl, self.packed, self.event = tbl, packed, None
+            self.host, self.event = list(tensors), None
 
-    def wait(self) -> None:
+    def wait(self):
+        """The host copies as numpy arrays, once the copies are done."""
         if self.event is not None:
             self.event.synchronize()
+        return [h.numpy() for h in self.host]
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +396,24 @@ def _host_block_fallback(data, cfg, halo, block, device="cuda"):
     return dense, uv_h, feats_h, int(nonzero.size)
 
 
+def _params(cfg, outer_shape, halo, e_max: int,
+            is_u8: bool) -> ResidentParams:
+    """The per-block chain's parameters from the task config (``is_u8``:
+    the resident volume holds raw bytes; the per-block paths read it from
+    each block's dtype)."""
+    return ResidentParams(
+        outer_shape=tuple(outer_shape), halo=tuple(halo), is_u8=is_u8,
+        threshold=float(cfg.get("threshold", 0.25)),
+        sigma_seeds=float(cfg.get("sigma_seeds", 2.0)),
+        sigma_weights=float(cfg.get("sigma_weights", 2.0)),
+        alpha=float(cfg.get("alpha", 0.8)),
+        min_size=int(cfg.get("size_filter", 25) or 0), e_max=e_max,
+        rle_cap=int(cfg.get("rle_cap", 1 << 22)),
+        refine_rounds=int(cfg.get("refine_rounds", 3)),
+        pair_cap=int(cfg.get("pair_cap", 1 << 21)),
+        coarse_factor=int(cfg.get("coarse_factor", 2)))
+
+
 class FusedSegmentationBlocks(BlockTask):
     """The fused blockwise pass: fragments written with globally
     consecutive ids (running offset, single job owns the device) plus
@@ -306,10 +433,9 @@ class FusedSegmentationBlocks(BlockTask):
         # raises here, at DAG construction, before any work starts
         self.device = task_device(self.global_config)
         method = self.task_config.get("ws_method", "device")
-        if method != "device":
-            raise NotImplementedError(
-                f"ws_method={method!r} is not ported yet (ROADMAP A7b); "
-                "use ws_method='device'")
+        if method not in ("device", "hybrid", "legacy"):
+            raise ValueError(f"unknown ws_method {method!r} (expected "
+                             "'device', 'hybrid' or 'legacy')")
         if self.task_config.get("mesh_resident"):
             raise NotImplementedError(
                 "mesh_resident is not ported yet (ROADMAP A14)")
@@ -324,8 +450,9 @@ class FusedSegmentationBlocks(BlockTask):
             # raise with a config pointer (e_max) or fall back to a dense
             # download (rle_cap)
             "e_max": 16384, "stream_window": 3,
-            # 'device' = resident-volume coarse-basins chain (the only
-            # execution strategy ported; 'hybrid'/'legacy' raise)
+            # 'device' = resident-volume coarse-basins chain (fastest);
+            # 'hybrid' = host C++ flood between two device stages;
+            # 'legacy' = per-block-upload device chain
             "ws_method": "device",
             "rle_cap": 1 << 20, "refine_rounds": 3,
             # coarse watershed pooling factor: 2 (conservative) or 4
@@ -347,11 +474,9 @@ class FusedSegmentationBlocks(BlockTask):
 
     def run_impl(self):
         with file_reader(self.input_path, "r") as f:
-            shape = list(f[self.input_key].shape)
-        if len(shape) != 3:
-            raise NotImplementedError(
-                "the fused device path needs a 3d scalar store; the legacy "
-                "streamed path is not ported yet (ROADMAP A7b)")
+            in_shape = f[self.input_key].shape
+        # a channel store (4-d) segments its 3-d spatial grid
+        shape = list(in_shape[1:] if len(in_shape) == 4 else in_shape)
         block_shape = self.global_block_shape()[-len(shape):]
         with file_reader(self.output_path) as f:
             f.require_dataset(self.output_key, shape=shape,
@@ -386,8 +511,16 @@ class FusedSegmentationBlocks(BlockTask):
         # per-run staging: a previous chain's fragments for the same store
         # paths would otherwise be served to FusedFaceAssembly / the write
         clear_caches()
-        cls._process_device(job_config, log_fn, blocking, halo, outer_shape,
-                            e_max, ds_in, ds_out, tmp_folder, state, max_ids)
+        method = cfg.get("ws_method", "device")
+        if method == "device" and ds_in.ndim != 3:
+            log_fn("resident device path needs a 3d scalar store; "
+                   "using the legacy streamed path")
+            method = "legacy"
+        impl = {"device": cls._process_device,
+                "hybrid": cls._process_hybrid,
+                "legacy": cls._process_legacy}[method]
+        impl(job_config, log_fn, blocking, halo, outer_shape, e_max, ds_in,
+             ds_out, tmp_folder, state, max_ids)
         with file_reader(cfg["output_path"]) as f:
             f[cfg["output_key"]].attrs["maxId"] = int(state["offset"])
         write_config(os.path.join(tmp_folder, "fused_max_ids.json"),
@@ -416,7 +549,6 @@ class FusedSegmentationBlocks(BlockTask):
         if device.type == "cuda":
             with stage("host-build"):
                 build_kernel()
-        rle_cap = int(cfg.get("rle_cap", 1 << 22))
         inner_shape = tuple(o - 2 * h for o, h in zip(outer_shape, halo))
         n_inner = int(np.prod(inner_shape))
         bs = cfg["block_shape"]
@@ -455,17 +587,7 @@ class FusedSegmentationBlocks(BlockTask):
                 torch.cuda.synchronize(device)
         stage_bytes("h2d-upload", volp.nbytes)
 
-        params = ResidentParams(
-            outer_shape=tuple(outer_shape), halo=tuple(halo), is_u8=is_u8,
-            threshold=float(cfg.get("threshold", 0.25)),
-            sigma_seeds=float(cfg.get("sigma_seeds", 2.0)),
-            sigma_weights=float(cfg.get("sigma_weights", 2.0)),
-            alpha=float(cfg.get("alpha", 0.8)),
-            min_size=int(cfg.get("size_filter", 25) or 0), e_max=e_max,
-            rle_cap=rle_cap,
-            refine_rounds=int(cfg.get("refine_rounds", 3)),
-            pair_cap=int(cfg.get("pair_cap", 1 << 21)),
-            coarse_factor=int(cfg.get("coarse_factor", 2)))
+        params = _params(cfg, outer_shape, halo, e_max, is_u8)
 
         ws_cache_key = (os.path.abspath(cfg["output_path"]),
                         cfg["output_key"])
@@ -479,8 +601,9 @@ class FusedSegmentationBlocks(BlockTask):
         def _run(bid, p):
             block = blocking.get_block(bid)
             extent = [e - b for b, e in zip(block.begin, block.end)]
-            return _BlockResult(*resident_block(vol_dev, block.begin,
-                                                extent, p))
+            tbl, packed, dense_grid = resident_block(vol_dev, block.begin,
+                                                     extent, p)
+            return _Download(tbl, packed), dense_grid
 
         def submit(bid):
             with stage("dispatch"):
@@ -503,17 +626,17 @@ class FusedSegmentationBlocks(BlockTask):
             log_fn(f"processed block {bid}")
 
         def _fetch_and_complete(bid, block, real, off, k_i, n_rle, rle_ok,
-                                res, uv_np, feats_np):
+                                packed, dense_grid, uv_np, feats_np):
             if rle_ok:
                 with stage("fetch-rle"):
-                    packed = res.packed.numpy()[:n_rle]
+                    packed = packed[:n_rle]
                 stage_bytes("fetch-rle", packed.nbytes)
                 with stage("host-decode"):
                     dense_np = rle_decode_packed(
                         packed, n_rle, n_inner).reshape(inner_shape)
             else:
                 with stage("fetch-dense"):
-                    dense_np = res.dense_grid.cpu().numpy()
+                    dense_np = dense_grid.cpu().numpy()
                 stage_bytes("fetch-dense", dense_np.nbytes)
             _complete(bid, block, real, off, k_i, dense_np, uv_np,
                       feats_np)
@@ -530,10 +653,9 @@ class FusedSegmentationBlocks(BlockTask):
                 return out
 
         def _drain_body(entry, retried: bool = False):
-            bid, res = entry
+            bid, (res, dense_grid) = entry
             with stage("sync-execute"):
-                res.wait()
-            tbl = res.tbl.numpy()
+                tbl, packed = res.wait()
             stage_bytes("sync-execute", tbl.nbytes)
             (k_i, n_r, e_over, cap_over, ws_ok, n_rle,
              rle_ok) = (int(x) for x in tbl[0, :7])
@@ -582,13 +704,208 @@ class FusedSegmentationBlocks(BlockTask):
             max_ids[bid] = k_i
             state["offset"] = off + np.uint64(k_i)
             finisher.submit(_fetch_and_complete, bid, block, real, off,
-                            k_i, n_rle, rle_ok, res, uv_np, feats_np)
+                            k_i, n_rle, rle_ok, packed, dense_grid, uv_np,
+                            feats_np)
 
         block_ids = list(job_config["block_list"])
         with writer_pool(cfg, ds_out) as finisher:
             for _ in stream_window(block_ids, submit, drain,
                                    window=int(cfg.get("stream_window", 3))):
                 pass
+
+    @staticmethod
+    def _write_dense(ds_out, block, dense, off):
+        """Offset a block's dense inner labels by the running offset and
+        write them (timed as ``store-write``)."""
+        from ..core.runtime import stage_add, stage_bytes
+
+        out = dense.astype("uint64")
+        out[out > 0] += off
+        t0 = time.perf_counter()
+        ds_out[block.bb] = out
+        stage_add("store-write", time.perf_counter() - t0)
+        stage_bytes("store-write", out.nbytes)
+
+    @staticmethod
+    def _prefetch_blocks(job_config, blocking, halo, ds_in):
+        """The job's (block id, reflect-padded raw outer block) pairs, read
+        ahead on a thread pool."""
+        from ..core.runtime import prefetch_iter, stage
+        from .watershed import _read_padded_input
+
+        cfg = job_config["config"]
+
+        def read(bid):
+            with stage("store-read"):
+                return bid, _read_padded_input(
+                    ds_in, blocking.get_block(bid), cfg, halo, raw=True)
+
+        return prefetch_iter(list(job_config["block_list"]), read)
+
+    @classmethod
+    def _process_legacy(cls, job_config, log_fn, blocking, halo,
+                        outer_shape, e_max, ds_in, ds_out, tmp_folder,
+                        state, max_ids):
+        """The JAX package's per-block streamed loop: each block's outer
+        window is read (reflect-padded), uploaded and run through
+        :func:`legacy_block`; its table and dense labels are copied to
+        pinned host memory behind one event while the next blocks run.  A
+        block whose watershed capacities overflow (``ok`` false) is redone
+        by :func:`_host_block_fallback` (the basins watershed on the same
+        device, then host edge features), counted as ``device-ws-redo``."""
+        from ..core.runtime import stage, stream_window
+        from ..ops.edt import build_kernel
+
+        cfg = job_config["config"]
+        device = resolve_device(cfg.get("device", "cuda"))
+        if device.type == "cuda":
+            with stage("host-build"):
+                build_kernel()
+        params = _params(cfg, outer_shape, halo, e_max, is_u8=False)
+
+        def submit(entry):
+            bid, data = entry
+            block = blocking.get_block(bid)
+            extent = [b.stop - b.start for b in block.bb]
+            with stage("dispatch"):
+                tbl, dense_grid = legacy_block(_upload(data, device), extent,
+                                               params)
+                return bid, data, _Download(tbl, dense_grid)
+
+        def drain(entry):
+            bid, data, res = entry
+            with stage("sync-execute"):
+                tbl, dense_np = res.wait()
+            k_i, ok, n_r, overflow = (int(v) for v in tbl[0, :4])
+            block = blocking.get_block(bid)
+            if overflow > 0:
+                raise RuntimeError(
+                    f"block {bid}: edge/compaction capacity exceeded "
+                    f"(e_max={e_max}) — raise e_max or shrink blocks")
+            if not ok:
+                with stage("device-ws-redo"):
+                    dense_np, uv_np, feats_np, k_i = _host_block_fallback(
+                        data, cfg, halo, block, device=device)
+                log_fn(f"block {bid}: watershed capacity overflow, redone "
+                       "with the exact-capacity basins watershed")
+            else:
+                uv_np = tbl[1:1 + n_r, :2].astype("int64")
+                feats_np = tbl[1:1 + n_r, 2:]
+            off = state["offset"]
+            # crop the uniform inner frame to the real (clipped) block
+            real = tuple(slice(0, b.stop - b.start) for b in block.bb)
+            cls._write_dense(ds_out, block, dense_np[real], off)
+            np.savez(_staged_path(tmp_folder, bid),
+                     uv=uv_np.astype("uint64") + off, feats=feats_np,
+                     k=np.int64(k_i), offset=np.uint64(off))
+            max_ids[bid] = k_i
+            state["offset"] = off + np.uint64(k_i)
+            log_fn(f"processed block {bid}")
+
+        reads = cls._prefetch_blocks(job_config, blocking, halo, ds_in)
+        for _ in stream_window(reads, submit, drain,
+                               window=int(cfg.get("stream_window", 3))):
+            pass
+
+    @classmethod
+    def _process_hybrid(cls, job_config, log_fn, blocking, halo,
+                        outer_shape, e_max, ds_in, ds_out, tmp_folder,
+                        state, max_ids):
+        """Hybrid streaming loop: device stage A (:func:`hybrid_pre`) ->
+        host C++ flood + local size filter + dense compaction -> device
+        stage B (:func:`_stats_table`), one block behind: block i's stage
+        B is enqueued before block i+1's flood starts and collected after
+        it, so the card computes while the host floods.  Writes go through
+        the writer pool."""
+        from collections import deque
+
+        from .. import native
+        from ..core.runtime import stage, stream_window, writer_pool
+        from ..ops.edt import build_kernel
+
+        cfg = job_config["config"]
+        device = resolve_device(cfg.get("device", "cuda"))
+        with stage("host-build"):
+            native.load()
+            if device.type == "cuda":
+                build_kernel()
+        params = _params(cfg, outer_shape, halo, e_max, is_u8=False)
+        n_outer = int(np.prod(outer_shape))
+        seed_cap = max(n_outer // 64, 1 << 14)
+        inner_shape = tuple(o - 2 * h for o, h in zip(outer_shape, halo))
+        inner_sl = tuple(slice(h, o - h) for h, o in zip(halo, outer_shape))
+        min_size = params.min_size
+        pending_b = deque()
+
+        def finalize_b():
+            bid, res, k_i, off = pending_b.popleft()
+            with stage("sync-stats"):
+                (tbl,) = res.wait()
+            n_r, overflow = int(tbl[0, 0]), int(tbl[0, 1])
+            if overflow > 0:
+                raise RuntimeError(
+                    f"block {bid}: edge capacity exceeded (e_max={e_max})")
+            np.savez(_staged_path(tmp_folder, bid),
+                     uv=tbl[1:1 + n_r, :2].astype("uint64") + off,
+                     feats=tbl[1:1 + n_r, 2:], k=np.int64(k_i),
+                     offset=np.uint64(off))
+            log_fn(f"processed block {bid}")
+
+        def submit(entry):
+            bid, data = entry
+            with stage("dispatch"):
+                x_dev = _upload(data, device)
+                return bid, x_dev, _Download(*hybrid_pre(x_dev, params,
+                                                         seed_cap))
+
+        def drain(entry):
+            bid, x_dev, res = entry
+            with stage("sync-execute"):
+                hq, pos, sid, n_seeds = res.wait()
+            n_seeds = int(n_seeds[0])
+            if n_seeds > seed_cap:
+                raise RuntimeError(
+                    f"block {bid}: {n_seeds} seed voxels exceed the COO "
+                    f"capacity {seed_cap}")
+            with stage("host-flood"):
+                markers = np.zeros(n_outer, "int64")
+                markers[pos[:n_seeds]] = sid[:n_seeds]
+                ws = native.seeded_watershed_u8(
+                    hq, markers.reshape(outer_shape))
+                if min_size:
+                    ws = native.size_filter_u8(hq, ws, min_size)
+            block = blocking.get_block(bid)
+            with stage("host-compact"):
+                inner = ws[tuple(slice(h, h + (b.stop - b.start))
+                                 for h, b in zip(halo, block.bb))]
+                uniq = np.unique(inner)
+                nonzero = uniq[uniq > 0]
+                dense = np.searchsorted(nonzero, inner).astype("int32") + 1
+                dense[inner == 0] = 0
+            k_i = int(nonzero.size)
+            off = state["offset"]
+            writer.submit(cls._write_dense, ds_out, block, dense, off)
+            max_ids[bid] = k_i
+            state["offset"] = off + np.uint64(k_i)
+            # pad the (clipped) dense inner back to the uniform frame; the
+            # pad is background, so it adds no pair
+            if dense.shape != inner_shape:
+                dense = np.pad(dense, [(0, i - s) for i, s in
+                                       zip(inner_shape, dense.shape)])
+            with stage("dispatch"):
+                tbl = _stats_table(_upload(dense, device),
+                                   _normalized(x_dev)[inner_sl], e_max, [])
+                pending_b.append((bid, _Download(tbl), k_i, off))
+            if len(pending_b) > 1:
+                finalize_b()
+
+        reads = cls._prefetch_blocks(job_config, blocking, halo, ds_in)
+        with writer_pool(cfg, ds_out) as writer:
+            for _ in stream_window(reads, submit, drain,
+                                   window=int(cfg.get("stream_window", 2))):
+                pass
+            while pending_b:
+                finalize_b()
 
 
 class FusedFaceAssembly(BlockTask):
@@ -625,7 +942,7 @@ class FusedFaceAssembly(BlockTask):
     def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
         from ..core.runtime import stage
         from ..ops.rag import segmented_stats, unique_pairs
-        from .watershed import _normalize_input
+        from .watershed import _normalize_input, _read_input
 
         cfg = job_config["config"]
         blocking = Blocking(cfg["shape"], cfg["block_shape"])
@@ -659,6 +976,11 @@ class FusedFaceAssembly(BlockTask):
                 x = vol[bb].astype("float64")
                 return (x / 255.0 if is_u8 else x).ravel()
             with stage("store-read"):
+                if ds_in.ndim == len(bb) + 1:
+                    # a channel store: the per-block paths' channel
+                    # agglomeration and normalization
+                    return _read_input(ds_in, bb, cfg).astype(
+                        "float64").ravel()
                 x = np.asarray(ds_in[bb])
             sidecar = os.path.join(cfg["fused_tmp"],
                                    "fused_input_scale.json")

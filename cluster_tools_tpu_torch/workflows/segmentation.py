@@ -10,7 +10,10 @@ chain (``fused=False``, the default: fragments from an upstream
 graph and features from one device pass per block,
 workflows/fused_pipeline.py).  ``SimpleStitchingWorkflow`` merges every
 fragment pair across a block boundary over a feature-only problem
-(reference workflows.py:361-386).
+(reference workflows.py:361-386).  ``LiftedMulticutSegmentationWorkflow``
+adds lifted edges from a semantic label volume and solves the lifted
+multicut; ``AgglomerativeClusteringWorkflow`` agglomerates the raw-feature
+problem to a threshold (reference workflows.py:236-358).
 """
 
 from __future__ import annotations
@@ -215,3 +218,139 @@ class SimpleStitchingWorkflow(Task):
     def output(self):
         return FileTarget(os.path.join(self.tmp_folder,
                                        "write_simple_stitching.status"))
+
+
+class LiftedMulticutSegmentationWorkflow(Task):
+    """Problem -> lifted features from semantic priors -> hierarchical
+    lifted multicut -> write (reference:
+    LiftedMulticutSegmentationWorkflow, workflows.py:236-323).  The
+    problem assembly runs on the card; the lifted features and solves are
+    host work over its graph files."""
+
+    def __init__(self, input_path: str, input_key: str, ws_path: str,
+                 ws_key: str, labels_path: str, labels_key: str,
+                 problem_path: str, output_path: str, output_key: str,
+                 lifted_prefix: str, tmp_folder: str, config_dir: str,
+                 max_jobs: int = 1, target: str = "gpu", n_scales: int = 1,
+                 nh_graph_depth: int = 4, mode: str = "all",
+                 offsets: Optional[List[List[int]]] = None,
+                 clear_labels_path: str = "", clear_labels_key: str = "",
+                 dependency: Optional[Task] = None):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.labels_path = labels_path
+        self.labels_key = labels_key
+        self.problem_path = problem_path
+        self.output_path = output_path
+        self.output_key = output_key
+        self.lifted_prefix = lifted_prefix
+        self.n_scales = n_scales
+        self.nh_graph_depth = nh_graph_depth
+        self.mode = mode
+        self.offsets = offsets
+        self.clear_labels_path = clear_labels_path
+        self.clear_labels_key = clear_labels_key
+        self.tmp_folder = tmp_folder
+        self.config_dir = config_dir
+        self.max_jobs = max_jobs
+        self.target = target
+        self.dependency = dependency
+        super().__init__()
+
+    def _common(self):
+        return dict(tmp_folder=self.tmp_folder, config_dir=self.config_dir,
+                    max_jobs=self.max_jobs, target=self.target)
+
+    def requires(self):
+        from .lifted_features import LiftedFeaturesFromNodeLabelsWorkflow
+        from .lifted_multicut import LiftedMulticutWorkflow
+
+        assignment_path = os.path.join(self.tmp_folder,
+                                       "lifted_multicut_assignments.npy")
+        problem = ProblemWorkflow(
+            input_path=self.input_path, input_key=self.input_key,
+            ws_path=self.ws_path, ws_key=self.ws_key,
+            problem_path=self.problem_path, offsets=self.offsets,
+            dependency=self.dependency, **self._common())
+        lifted_feats = LiftedFeaturesFromNodeLabelsWorkflow(
+            ws_path=self.ws_path, ws_key=self.ws_key,
+            labels_path=self.labels_path, labels_key=self.labels_key,
+            graph_path=self.problem_path, graph_key="s0/graph",
+            output_path=self.problem_path,
+            nh_out_key=f"s0/lifted_nh_{self.lifted_prefix}",
+            feat_out_key=f"s0/lifted_costs_{self.lifted_prefix}",
+            prefix=self.lifted_prefix, nh_graph_depth=self.nh_graph_depth,
+            mode=self.mode, clear_labels_path=self.clear_labels_path,
+            clear_labels_key=self.clear_labels_key, dependency=problem,
+            **self._common())
+        lifted_mc = LiftedMulticutWorkflow(
+            problem_path=self.problem_path, assignment_path=assignment_path,
+            lifted_prefix=self.lifted_prefix, n_scales=self.n_scales,
+            dependency=lifted_feats, **self._common())
+        return WriteAssignments(
+            input_path=self.ws_path, input_key=self.ws_key,
+            output_path=self.output_path, output_key=self.output_key,
+            assignment_path=assignment_path, identifier="lifted_multicut",
+            dependency=lifted_mc, **self._common())
+
+    def output(self):
+        return FileTarget(os.path.join(self.tmp_folder,
+                                       "write_lifted_multicut.status"))
+
+
+class AgglomerativeClusteringWorkflow(Task):
+    """Problem (features only) -> global agglomerative clustering -> write
+    (reference: AgglomerativeClusteringWorkflow, workflows.py:327-358)."""
+
+    def __init__(self, input_path: str, input_key: str, ws_path: str,
+                 ws_key: str, problem_path: str, output_path: str,
+                 output_key: str, threshold: float, tmp_folder: str,
+                 config_dir: str, max_jobs: int = 1, target: str = "gpu",
+                 offsets: Optional[List[List[int]]] = None,
+                 dependency: Optional[Task] = None):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.ws_path = ws_path
+        self.ws_key = ws_key
+        self.problem_path = problem_path
+        self.output_path = output_path
+        self.output_key = output_key
+        self.threshold = threshold
+        self.offsets = offsets
+        self.tmp_folder = tmp_folder
+        self.config_dir = config_dir
+        self.max_jobs = max_jobs
+        self.target = target
+        self.dependency = dependency
+        super().__init__()
+
+    def _common(self):
+        return dict(tmp_folder=self.tmp_folder, config_dir=self.config_dir,
+                    max_jobs=self.max_jobs, target=self.target)
+
+    def requires(self):
+        from .agglomerative_clustering import AgglomerativeClustering
+
+        assignment_path = os.path.join(self.tmp_folder,
+                                       "agglomeration_assignments.npy")
+        problem = ProblemWorkflow(
+            input_path=self.input_path, input_key=self.input_key,
+            ws_path=self.ws_path, ws_key=self.ws_key,
+            problem_path=self.problem_path, offsets=self.offsets,
+            compute_costs=False, dependency=self.dependency,
+            **self._common())
+        agglo = AgglomerativeClustering(
+            problem_path=self.problem_path, assignment_path=assignment_path,
+            threshold=self.threshold, dependency=problem, **self._common())
+        return WriteAssignments(
+            input_path=self.ws_path, input_key=self.ws_key,
+            output_path=self.output_path, output_key=self.output_key,
+            assignment_path=assignment_path,
+            identifier="agglomerative_clustering", dependency=agglo,
+            **self._common())
+
+    def output(self):
+        return FileTarget(os.path.join(
+            self.tmp_folder, "write_agglomerative_clustering.status"))

@@ -258,7 +258,7 @@ class ResidentBlockComponents(BlockTask):
         from ..core.runtime import (stage, stage_add, stage_bytes,
                                     stream_window)
         from ..ops.sweep import rle_decode_packed
-        from .fused_pipeline import _BlockResult, _fragment_cache_put
+        from .fused_pipeline import _Download, _fragment_cache_put
 
         cfg = job_config["config"]
         device = resolve_device(cfg["device"])
@@ -310,26 +310,26 @@ class ResidentBlockComponents(BlockTask):
                 cfg["threshold_mode"], connectivity, rle_cap)
             # the count and the run-length stream go to pinned host
             # buffers at once; the dense block stays on the device
-            res = _BlockResult(k.reshape(1).to(torch.int64), packed, dense)
-            return bid, res, n_rle, rle_ok
+            res = _Download(k.reshape(1).to(torch.int64), packed)
+            return bid, res, dense, n_rle, rle_ok
 
         def drain(entry):
-            bid, res, n_rle, rle_ok = entry
+            bid, res, dense, n_rle, rle_ok = entry
             block = blocking.get_block(bid)
             real = tuple(slice(0, e - b) for b, e in zip(block.begin,
                                                          block.end))
             with stage("sync-execute"):
-                res.wait()
-            k_i = int(res.tbl.numpy()[0])
+                k_np, packed = res.wait()
+            k_i = int(k_np[0])
             if rle_ok:
                 with stage("d2h-rle"):
-                    packed = res.packed.numpy()[:n_rle]
+                    packed = packed[:n_rle]
                     dense_np = rle_decode_packed(
                         packed, n_rle, n_block).reshape(bs)
                 stage_bytes("d2h-rle", packed.nbytes)
             else:
                 with stage("d2h-dense"):
-                    dense_np = res.dense_grid.cpu().numpy()
+                    dense_np = dense.cpu().numpy()
                 stage_bytes("d2h-dense", dense_np.nbytes)
             local = dense_np[real]
             local = local.astype("uint16" if k_i < 65536 else "uint32")

@@ -6,21 +6,24 @@ read the boundary map, threshold + Euclidean distance transform (the CUDA
 lower-envelope kernel on the card, ops/edt.py), seeds from smoothed-DT
 maxima, seeded watershed on a height map mixing boundary evidence and the
 inverted DT, size filter, per-block label offset, write the inner block.
-:class:`WatershedWorkflow` chains the relabel to consecutive ids, and with
+:class:`WatershedWorkflow` chains the relabel to consecutive ids, with
 ``two_pass=True`` runs the checkerboard variant whose second pass
-continues the first pass's labels as seeds.
+continues the first pass's labels as seeds, and with
+``agglomeration=True`` merges each block's fragments by
+:class:`AgglomerateTask`.  :class:`WatershedFromSeedsTask` grows a given
+seed volume.
 
 Every device step runs on the global config's ``"device"`` (default
-``"cuda"``); the host keeps the reads, the id compaction's bookkeeping and
-the writes.  The plain 3-d path streams the job's blocks through
-:func:`iter_ws_blocks_stream`; masks, ``pixel_pitch``, ``apply_dt_2d`` and
-the seeded second pass run :func:`run_ws_block` /
-:func:`run_ws_block_seeded` per block.
-
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A9b):
-``apply_ws_2d``, ``non_maximum_suppression``, ``ws_algorithm="flood"``,
-``impl="host"``, ``agglomeration=True`` and ``WatershedFromSeedsTask``;
-``target="mesh"`` raises naming A14.
+``"cuda"``); the host keeps the reads, the id compaction's bookkeeping,
+the non-maximum suppression, the agglomeration's priority queue and the
+writes.  The plain 3-d path streams the job's blocks through
+:func:`iter_ws_blocks_stream`; masks, ``pixel_pitch``, ``apply_dt_2d``,
+``apply_ws_2d`` (per z-slice), ``non_maximum_suppression`` and the seeded
+second pass run :func:`run_ws_block` / :func:`run_ws_block_seeded` per
+block.  ``ws_algorithm`` picks the watershed: ``coarse`` (default),
+``basins`` or ``flood``.  ``impl: "host"`` runs :func:`run_ws_block_host`,
+the JAX package's scipy + C++ CPU pipeline, only when asked for.
+``target="mesh"`` raises naming ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -38,9 +41,6 @@ from ..core.storage import file_reader
 from ..core.workflow import FileTarget, Task
 from .inference import load_with_halo
 from .relabel import RelabelWorkflow
-
-#: task-config options of the JAX package's watershed that are not ported
-_UNPORTED = ("apply_ws_2d", "non_maximum_suppression")
 
 
 def _normalize_input(data: np.ndarray, cfg) -> np.ndarray:
@@ -142,18 +142,47 @@ def _ws_algorithm(cfg) -> str:
     return m if m in ("coarse", "basins", "flood") else "coarse"
 
 
-def _check_ported(cfg) -> None:
-    for key in _UNPORTED:
-        if cfg.get(key):
-            raise NotImplementedError(
-                f"{key} is not ported yet (ROADMAP A9b)")
-    if _ws_algorithm(cfg) == "flood":
-        raise NotImplementedError(
-            "ws_algorithm='flood' is not ported yet (ROADMAP A9b)")
-    if cfg.get("impl") == "host":
-        raise NotImplementedError(
-            "impl='host' (the host C++ flood) is not ported yet "
-            "(ROADMAP A9b)")
+def suppress_maxima(points: np.ndarray, radii: np.ndarray) -> np.ndarray:
+    """Greedy distance-based non-maximum suppression of seed candidates
+    (reference: watershed.py:199-203, nifty nonMaximumDistanceSuppression):
+    in decreasing distance-transform order, a candidate is dropped when it
+    lies inside the dt-radius of an already accepted (stronger) maximum.
+    Returns the kept ``(K, ndim)`` integer coordinates."""
+    if len(points) == 0:
+        return points
+    order = np.argsort(-radii)
+    pts = points[order].astype("float64")
+    rad = radii[order].astype("float64")
+    kept = [0]
+    for i in range(1, len(pts)):
+        kp = pts[kept]
+        d2 = ((kp - pts[i]) ** 2).sum(axis=1)
+        if not (d2 < rad[kept] ** 2).any():
+            kept.append(i)
+    return points[order[kept]]
+
+
+def _suppressed_seeds(maxima: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+    """Seeds after non-maximum suppression: one representative per
+    connected maxima component (its highest-dt voxel), suppressed on the
+    host, numbered 1..K in the kept order (reference: watershed.py:179-207;
+    a cheap host step between two device passes)."""
+    from ..ops.components import connected_components
+
+    comp = connected_components(maxima, connectivity=maxima.dim(),
+                                method="propagation").cpu().numpy()
+    pts = np.argwhere(comp > 0)
+    if len(pts):
+        radii = dt.cpu().numpy()[tuple(pts.T)]
+        cids = comp[tuple(pts.T)]
+        order = np.lexsort((-radii, cids))
+        first = np.r_[True, np.diff(cids[order]) != 0]
+        kept = suppress_maxima(pts[order[first]], radii[order[first]])
+    else:
+        kept = pts
+    seeds = np.zeros(comp.shape, "int32")
+    seeds[tuple(kept.T)] = np.arange(1, len(kept) + 1)
+    return torch.from_numpy(seeds).to(maxima.device)
 
 
 def _as_device(arr: np.ndarray, device) -> torch.Tensor:
@@ -174,18 +203,20 @@ def _height_map(x: torch.Tensor, dt: torch.Tensor, alpha: float,
 def _run_ws_block_tensor(data: np.ndarray, cfg: Dict[str, Any],
                          mask: Optional[np.ndarray], device
                          ) -> torch.Tensor:
-    """:func:`run_ws_block` up to its labels as an int32 tensor (the
-    size-filtered labels come back from the host as int64)."""
-    from ..ops.components import connected_components
+    """:func:`run_ws_block` up to its labels as a tensor (int32 on the
+    device, int64 from the per-slice offsets or the host size filter)."""
+    from ..ops.components import (connected_components,
+                                  connected_components_batched)
     from ..ops.edt import distance_transform_edt
-    from ..ops.filters import gaussian, local_maxima
-    from ..ops.watershed import coarse, seeded_watershed, size_filter
+    from ..ops.filters import gaussian, local_maxima, rank_pool_max
+    from ..ops.watershed import (coarse, seeded_watershed,
+                                 seeded_watershed_batched, size_filter)
 
-    _check_ported(cfg)
     threshold = cfg.get("threshold", 0.25)
     sigma_seeds = cfg.get("sigma_seeds", 2.0)
     min_size = cfg.get("size_filter", 25)
     pixel_pitch = cfg.get("pixel_pitch")
+    ws_2d = cfg.get("apply_ws_2d", False)
 
     x = _as_device(data, device)
     tmask = None if mask is None else _as_device(mask.astype(bool), device)
@@ -193,7 +224,7 @@ def _run_ws_block_tensor(data: np.ndarray, cfg: Dict[str, Any],
     fg = x < threshold
     if tmask is not None:
         fg = fg & tmask
-    if cfg.get("apply_dt_2d", False):
+    if cfg.get("apply_dt_2d", False) or ws_2d:
         # per-slice 2d EDT: the slices fold into the kernel's scanlines
         dt = distance_transform_edt(fg, axes=(1, 2))
     else:
@@ -201,25 +232,51 @@ def _run_ws_block_tensor(data: np.ndarray, cfg: Dict[str, Any],
             fg, sampling=tuple(pixel_pitch) if pixel_pitch else None)
     height = _height_map(x, dt, cfg.get("alpha", 0.8),
                          cfg.get("sigma_weights", 2.0))
-    # seeds: connected maxima clusters of the smoothed DT
-    dt_smooth = gaussian(dt, sigma_seeds) if sigma_seeds else dt
-    maxima = local_maxima(dt_smooth, radius=2) & fg
-    seeds = connected_components(maxima, connectivity=data.ndim,
-                                 method="propagation")
-    if _ws_algorithm(cfg) == "coarse" and tmask is None and data.ndim == 3:
-        # the watershed core shared with the fused chain (identical
-        # composition -> identical fragment partitions); the size filter
-        # is integrated in the coarse solve
-        labels, ok = coarse(height, seeds, min_size or 0,
-                            int(cfg.get("refine_rounds", 3)),
-                            int(cfg.get("coarse_factor", 2)))
-        if bool(ok):
-            return labels
-    ws = seeded_watershed(height, seeds, tmask, connectivity=1)
+    if ws_2d:
+        # an independent watershed per z-slice (reference:
+        # watershed.py:211-230): per-slice Gaussian, 5x5 maxima and
+        # 8-connected seed clusters, then per-slice offsets
+        # ``z * slice_size`` make the labels unique across slices
+        dt_smooth = (gaussian(dt, (0, sigma_seeds, sigma_seeds))
+                     if sigma_seeds else dt)
+        maxima = (dt_smooth >= rank_pool_max(dt_smooth, (1, 5, 5))) & fg
+        seeds = connected_components_batched(maxima, connectivity=2,
+                                             method="propagation")
+        ws = seeded_watershed_batched(height, seeds, tmask,
+                                      connectivity=1).to(torch.int64)
+        slice_size = int(np.prod(data.shape[1:]))
+        offsets = (torch.arange(data.shape[0], dtype=torch.int64,
+                                device=ws.device) * slice_size)[:, None, None]
+        ws = torch.where(ws > 0, ws + offsets, 0)
+    else:
+        # seeds: connected maxima clusters of the smoothed DT
+        dt_smooth = gaussian(dt, sigma_seeds) if sigma_seeds else dt
+        maxima = local_maxima(dt_smooth, radius=2) & fg
+        if cfg.get("non_maximum_suppression", False):
+            seeds = _suppressed_seeds(maxima, dt)
+        else:
+            seeds = connected_components(maxima, connectivity=data.ndim,
+                                         method="propagation")
+        method = _ws_algorithm(cfg)
+        if method == "coarse" and tmask is None and data.ndim == 3:
+            # the watershed core shared with the fused chain (identical
+            # composition -> identical fragment partitions); the size
+            # filter is integrated in the coarse solve
+            labels, ok = coarse(height, seeds, min_size or 0,
+                                int(cfg.get("refine_rounds", 3)),
+                                int(cfg.get("coarse_factor", 2)))
+            if bool(ok):
+                return labels
+            ws = seeded_watershed(height, seeds, tmask, connectivity=1)
+        else:
+            ws = seeded_watershed(
+                height, seeds, tmask, connectivity=1,
+                method=None if method == "coarse" else method)
     if not min_size:
         return ws
     return torch.from_numpy(size_filter(ws.cpu().numpy(), height, min_size,
-                                        mask=tmask).astype("int64"))
+                                        mask=tmask, per_slice=ws_2d)
+                            .astype("int64"))
 
 
 def run_ws_block(data: np.ndarray, cfg: Dict[str, Any],
@@ -227,13 +284,69 @@ def run_ws_block(data: np.ndarray, cfg: Dict[str, Any],
                  device="cuda") -> np.ndarray:
     """The per-block watershed pipeline (reference: _ws_block
     watershed.py:285-341) on ``device``: EDT (``pixel_pitch`` as its
-    sampling, or per slice with ``apply_dt_2d``), height map, seeds from
-    smoothed-DT maxima, the coarse watershed (``ws_algorithm="coarse"``,
-    the default, unmasked 3d; it falls back to basins when its capacities
-    overflow) or the basin-merging watershed (masks, ``"basins"``), size
-    filter.  Returns uint64 labels."""
+    sampling, or per slice with ``apply_dt_2d``/``apply_ws_2d``), height
+    map, seeds from smoothed-DT maxima (optionally thinned by
+    ``non_maximum_suppression``), the watershed of ``ws_algorithm`` —
+    coarse (the default, unmasked 3d; it falls back to basins when its
+    capacities overflow), basins or flood — or an independent watershed
+    per z-slice (``apply_ws_2d``), then the size filter.  Returns uint64
+    labels."""
     return _run_ws_block_tensor(data, cfg, mask, device).cpu().numpy() \
         .astype("uint64")
+
+
+def run_ws_block_host(data: np.ndarray, cfg: Dict[str, Any],
+                      mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """Per-block DT watershed on HOST scipy C kernels and the native C++
+    priority flood (``impl: "host"``; the JAX package's CPU stand-in for
+    the reference's vigra pipeline, reference:
+    watershed/watershed.py:139-249).  It runs on the host because the
+    task config asks for it, never in place of the card.
+
+    scipy's distance_transform_edt, gaussian_filter, maximum_filter and
+    label stand in for vigra's distanceTransform, gaussianSmoothing,
+    localMaxima3D and labelVolumeWithBackground, and
+    :func:`native.seeded_watershed_u8` (a monotone bucket-queue flood over
+    the height quantized to uint8) for watershedsNew; the composition is
+    the device pipeline's (boundaries smoothed before blending, 5x5x5
+    maxima, 3d DT and watershed)."""
+    from scipy import ndimage
+
+    from ..native import seeded_watershed_u8
+
+    threshold = cfg.get("threshold", 0.25)
+    sigma_seeds = cfg.get("sigma_seeds", 2.0)
+    sigma_weights = cfg.get("sigma_weights", 2.0)
+    min_size = cfg.get("size_filter", 25)
+    alpha = cfg.get("alpha", 0.8)
+    pitch = cfg.get("pixel_pitch")
+
+    fg = data < threshold
+    if mask is not None:
+        fg &= mask
+    dt = ndimage.distance_transform_edt(fg, sampling=pitch).astype("float32")
+    hmap = (ndimage.gaussian_filter(data, sigma_weights)
+            if sigma_weights else data)
+    height = alpha * hmap + (1.0 - alpha) * (1.0 - dt / max(dt.max(), 1e-6))
+    dts = ndimage.gaussian_filter(dt, sigma_seeds) if sigma_seeds else dt
+    maxima = (dts >= ndimage.maximum_filter(dts, size=5)) & fg
+    seeds, _ = ndimage.label(maxima, structure=np.ones((3,) * data.ndim,
+                                                       bool))
+    hq = np.clip((height - height.min())
+                 / max(float(height.max() - height.min()), 1e-6) * 255,
+                 0, 255).astype("uint8")
+    markers = seeds.astype("int64")
+    if mask is not None:
+        markers[~mask] = -1  # barrier: the flood never enters the mask
+    ws = seeded_watershed_u8(hq, markers)
+    if min_size:
+        ids, counts = np.unique(ws[ws > 0], return_counts=True)
+        small = set(ids[counts < min_size].tolist())
+        if small:
+            kept = np.where(np.isin(ws, list(small)), 0, ws)
+            ws = seeded_watershed_u8(hq, kept)
+    ws[ws < 0] = 0
+    return ws.astype("uint64")
 
 
 def _ws_pipeline_3d(x: torch.Tensor, threshold: float, sigma_seeds: float,
@@ -242,14 +355,15 @@ def _ws_pipeline_3d(x: torch.Tensor, threshold: float, sigma_seeds: float,
                     refine_rounds: int = 3, coarse_factor: int = 2):
     """The streamed 3d pipeline on one outer block, on ``x``'s device.
     With ``min_size`` the size filter is fused in (coarse: integrated in
-    the solve; basins: small fragments stripped and re-merged).  Returns
+    the solve; basins: small fragments stripped and re-merged; flood: a
+    second flood from the surviving seeds).  Returns
     ``(labels, ok)``, or ``(labels, height, ok)`` with ``return_height``
     for a host size filter downstream; ``ok`` is false when the
     watershed's capacities overflowed."""
     from ..ops.components import connected_components
     from ..ops.edt import distance_transform_edt
     from ..ops.filters import gaussian, local_maxima
-    from ..ops.watershed import basins, coarse
+    from ..ops.watershed import basins, coarse, seeded_watershed
 
     if x.dtype == torch.uint8:
         # device-side normalization of quantized boundary maps (a multiply
@@ -272,8 +386,18 @@ def _ws_pipeline_3d(x: torch.Tensor, threshold: float, sigma_seeds: float,
         ws, ok = basins(height, seeds, None, 1, 64, min_size,
                         max(n // 64, 1024), max(n // 8, 4096))
     else:
-        raise NotImplementedError(
-            f"ws_algorithm={ws_method!r} is not ported yet (ROADMAP A9b)")
+        ok = torch.ones((), dtype=torch.bool, device=x.device)
+        ws = seeded_watershed(height, seeds, None, connectivity=1,
+                              method=ws_method)
+        if min_size:
+            # label ids are bounded by the voxel count (CC roots + 1)
+            n = int(np.prod(x.shape))
+            counts = torch.bincount(ws.reshape(-1).long(), minlength=n + 1)
+            small = counts < min_size
+            small[0] = False
+            kept = torch.where(small[ws.long()], 0, ws)
+            ws = seeded_watershed(height, kept, None, connectivity=1,
+                                  method=ws_method)
     if return_height:
         return ws, height, ok
     return ws, ok
@@ -482,7 +606,6 @@ class WatershedTask(BlockTask):
             raise NotImplementedError(
                 "target='mesh' is not ported yet (ROADMAP A14)")
         self.device = task_device(self.global_config)
-        _check_ported(self.task_config)
 
     @staticmethod
     def default_task_config():
@@ -568,8 +691,11 @@ class WatershedTask(BlockTask):
         # plain 3d path: stream every block of the job through the fused
         # pipeline — transfers and compute of consecutive blocks overlap
         streamable = (not seeded and mask is None
+                      and cfg.get("impl") != "host"
                       and not cfg.get("apply_dt_2d")
-                      and not cfg.get("pixel_pitch"))
+                      and not cfg.get("apply_ws_2d")
+                      and not cfg.get("pixel_pitch")
+                      and not cfg.get("non_maximum_suppression"))
         if streamable:
             block_ids = list(job_config["block_list"])
             # threaded read look-ahead: block i+2's store read overlaps
@@ -626,8 +752,12 @@ class WatershedTask(BlockTask):
                 _write(block.bb, ws[inner_sl])
                 log_fn(f"processed block {block_id}")
                 continue
-            _write_result(block_id,
-                          _run_ws_block_tensor(data, cfg, bmask, device))
+            if cfg.get("impl") == "host":
+                ws = torch.from_numpy(run_ws_block_host(data, cfg, bmask)
+                                      .astype("int64"))
+            else:
+                ws = _run_ws_block_tensor(data, cfg, bmask, device)
+            _write_result(block_id, ws)
 
 
 class WatershedPass1Task(WatershedTask):
@@ -647,20 +777,213 @@ class WatershedPass2Task(WatershedTask):
 
 
 class WatershedFromSeedsTask(BlockTask):
-    """Blockwise seeded watershed from a precomputed seed volume
-    (reference: watershed_from_seeds.py:25).  Not ported yet."""
+    """Blockwise seeded watershed from a precomputed seed volume (reference:
+    watershed_from_seeds.py:25 — grow given seeds over the boundary map; no
+    new seeds, no offsets: seed ids are already globally consistent).  The
+    Gaussian and the watershed run on the global config's device."""
 
     task_name = "watershed_from_seeds"
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "WatershedFromSeedsTask is not ported yet (ROADMAP A9b)")
+    def __init__(self, input_path: str, input_key: str, seeds_path: str,
+                 seeds_key: str, output_path: str, output_key: str,
+                 mask_path: str = "", mask_key: str = "", **kw):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.seeds_path = seeds_path
+        self.seeds_key = seeds_key
+        self.output_path = output_path
+        self.output_key = output_key
+        self.mask_path = mask_path
+        self.mask_key = mask_key
+        super().__init__(**kw)
+        self.device = task_device(self.global_config)
+
+    @staticmethod
+    def default_task_config():
+        conf = BlockTask.default_task_config()
+        conf.update({"halo": [2, 16, 16], "sigma_weights": 2.0,
+                     "invert_inputs": False, "agglomerate_channels": "mean",
+                     "channel_begin": 0, "channel_end": None})
+        return conf
+
+    def run_impl(self):
+        with file_reader(self.input_path, "r") as f:
+            in_shape = f[self.input_key].shape
+        shape = list(in_shape[1:] if len(in_shape) == 4 else in_shape)
+        block_shape = self.global_block_shape()[-len(shape):]
+        with file_reader(self.output_path) as f:
+            f.require_dataset(self.output_key, shape=shape, chunks=block_shape,
+                              dtype="uint64")
+        block_list = self.blocks_in_volume(shape, block_shape)
+        self.run_jobs(block_list, {
+            "input_path": self.input_path, "input_key": self.input_key,
+            "seeds_path": self.seeds_path, "seeds_key": self.seeds_key,
+            "output_path": self.output_path, "output_key": self.output_key,
+            "mask_path": self.mask_path, "mask_key": self.mask_key,
+            "shape": shape, "block_shape": block_shape,
+            "device": self.device,
+        }, n_jobs=self.max_jobs)
+
+    @classmethod
+    def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
+        from ..core.device import resolve_device
+        from ..ops.filters import gaussian
+        from ..ops.rag import densify_labels
+        from ..ops.watershed import seeded_watershed
+
+        cfg = job_config["config"]
+        device = resolve_device(cfg["device"])
+        blocking = Blocking(cfg["shape"], cfg["block_shape"])
+        halo = (cfg.get("halo") or [0] * blocking.ndim)[-blocking.ndim:]
+        ds_in = file_reader(cfg["input_path"], "r")[cfg["input_key"]]
+        ds_seeds = file_reader(cfg["seeds_path"], "r")[cfg["seeds_key"]]
+        ds_out = file_reader(cfg["output_path"])[cfg["output_key"]]
+        mask = None
+        if cfg.get("mask_path"):
+            from ..core.volume_views import load_mask
+
+            mask = load_mask(cfg["mask_path"], cfg["mask_key"], cfg["shape"])
+
+        sigma = cfg.get("sigma_weights", 2.0)
+        for block_id in job_config["block_list"]:
+            bh = blocking.get_block_with_halo(block_id, halo)
+            data = _read_input(ds_in, bh.outer.bb, cfg)
+            bmask = None
+            if mask is not None:
+                bmask = np.asarray(mask[bh.outer.bb]) > 0
+                if not bmask.any():
+                    log_fn(f"processed block {block_id}")
+                    continue
+            # densify (seed ids are arbitrary uint64; the device wants int32)
+            lut, dense = densify_labels(np.asarray(ds_seeds[bh.outer.bb]))
+            if len(lut) == 1:  # only the reserved 0 entry: no seeds here
+                log_fn(f"processed block {block_id}")
+                continue
+            x = _as_device(data, device)
+            height = gaussian(x, sigma) if sigma else x
+            ws = seeded_watershed(
+                height, _as_device(dense, device),
+                None if bmask is None else _as_device(bmask, device),
+                connectivity=1).cpu().numpy()
+            ds_out[bh.inner.bb] = lut[ws][bh.inner_local.bb]
+            log_fn(f"processed block {block_id}")
+
+
+class AgglomerateTask(BlockTask):
+    """Block-local RAG agglomeration of watershed fragments (reference:
+    watershed/agglomerate.py:129+ — gridRag + accumulateEdgeMeanAndLength +
+    mala/edge-weighted agglo policy + projectScalarNodeDataToPixels).
+
+    The edge extraction and the per-pair boundary samples run on the global
+    config's device (ops/rag), the priority-queue agglomeration in the
+    native C++ (:func:`native.agglomerative_clustering`).  Fragment ids are
+    re-offset per block (the workflow relabels afterwards, as in the
+    reference)."""
+
+    task_name = "agglomerate"
+
+    def __init__(self, input_path: str, input_key: str, labels_path: str,
+                 labels_key: str, output_path: str, output_key: str, **kw):
+        self.input_path = input_path
+        self.input_key = input_key
+        self.labels_path = labels_path
+        self.labels_key = labels_key
+        self.output_path = output_path
+        self.output_key = output_key
+        super().__init__(**kw)
+        self.device = task_device(self.global_config)
+
+    @staticmethod
+    def default_task_config():
+        conf = BlockTask.default_task_config()
+        conf.update({"threshold": 0.9, "size_regularizer": 0.5,
+                     "invert_inputs": False, "agglomerate_channels": "mean",
+                     "channel_begin": 0, "channel_end": None})
+        return conf
+
+    def run_impl(self):
+        with file_reader(self.labels_path, "r") as f:
+            shape = list(f[self.labels_key].shape)
+        block_shape = self.global_block_shape()[-len(shape):]
+        with file_reader(self.output_path) as f:
+            f.require_dataset(self.output_key, shape=shape, chunks=block_shape,
+                              dtype="uint64")
+        block_list = self.blocks_in_volume(shape, block_shape)
+        self.run_jobs(block_list, {
+            "input_path": self.input_path, "input_key": self.input_key,
+            "labels_path": self.labels_path, "labels_key": self.labels_key,
+            "output_path": self.output_path, "output_key": self.output_key,
+            "shape": shape, "block_shape": block_shape,
+            "device": self.device,
+        }, n_jobs=self.max_jobs)
+
+    @classmethod
+    def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
+        from .. import native
+        from ..core.device import resolve_device
+        from ..ops.rag import boundary_pair_values, densify_labels
+
+        cfg = job_config["config"]
+        device = resolve_device(cfg["device"])
+        blocking = Blocking(cfg["shape"], cfg["block_shape"])
+        ds_in = file_reader(cfg["input_path"], "r")[cfg["input_key"]]
+        ds_lab = file_reader(cfg["labels_path"], "r")[cfg["labels_key"]]
+        ds_out = file_reader(cfg["output_path"])[cfg["output_key"]]
+        threshold = cfg.get("threshold", 0.9)
+        size_reg = cfg.get("size_regularizer", 0.5)
+        offset_unit = np.uint64(np.prod(cfg["block_shape"]))
+
+        for block_id in job_config["block_list"]:
+            block = blocking.get_block(block_id)
+            labels = np.asarray(ds_lab[block.bb])
+            lut, dense = densify_labels(labels)
+            n_nodes = len(lut)
+            if n_nodes <= 1:
+                ds_out[block.bb] = labels
+                log_fn(f"processed block {block_id}")
+                continue
+            bmap = _read_input(ds_in, block.bb, cfg)
+            u, v, val, ok = boundary_pair_values(_as_device(dense, device),
+                                                 _as_device(bmap, device))
+            m = ok.cpu().numpy()
+            uv_all = np.stack([u.cpu().numpy()[m], v.cpu().numpy()[m]],
+                              axis=1)
+            vals = val.cpu().numpy()[m].astype("float64")
+            if len(uv_all) == 0:
+                ds_out[block.bb] = labels
+                log_fn(f"processed block {block_id}")
+                continue
+            # per-(dense) edge mean + size; drop edges to the ignore label 0.
+            # One int64 key per pair sorts as the reference's
+            # ``np.unique(uv, axis=0)`` (lexicographic rows) and is faster
+            key, inv = np.unique(uv_all[:, 0].astype("int64") * n_nodes
+                                 + uv_all[:, 1], return_inverse=True)
+            inv = inv.reshape(-1)
+            uv = np.stack([key // n_nodes, key % n_nodes], axis=1)
+            sums = np.bincount(inv, weights=vals, minlength=len(uv))
+            sizes = np.bincount(inv, minlength=len(uv)).astype("float64")
+            keep = (uv[:, 0] != 0) & (uv[:, 1] != 0)
+            uv, sums, sizes = uv[keep], sums[keep], sizes[keep]
+            node_sizes = np.bincount(dense.ravel(),
+                                     minlength=n_nodes).astype("float64")
+            clusters = native.agglomerative_clustering(
+                n_nodes, uv, sums / np.maximum(sizes, 1), edge_sizes=sizes,
+                node_sizes=node_sizes, threshold=threshold,
+                size_regularizer=size_reg)
+            # keep 0 as background, compact cluster ids, offset per block
+            nz = np.unique(clusters[1:])
+            remap = np.searchsorted(nz, clusters).astype("uint64") + 1
+            remap[0] = 0
+            out = remap[dense] + np.where(remap[dense] > 0,
+                                          np.uint64(block_id) * offset_unit,
+                                          np.uint64(0))
+            ds_out[block.bb] = out
+            log_fn(f"processed block {block_id}")
 
 
 class WatershedWorkflow(Task):
-    """[TwoPass]Watershed -> RelabelWorkflow (reference:
-    watershed/watershed_workflow.py:20-60).  ``agglomeration=True`` (the
-    block-local RAG agglomeration) is not ported yet (ROADMAP A9b)."""
+    """[TwoPass]Watershed -> [Agglomerate] -> RelabelWorkflow (reference:
+    watershed/watershed_workflow.py:20-60)."""
 
     def __init__(self, input_path: str, input_key: str, output_path: str,
                  output_key: str, tmp_folder: str, config_dir: str,
@@ -673,10 +996,6 @@ class WatershedWorkflow(Task):
                 "two_pass and agglomeration are mutually exclusive: the "
                 "block-local agglomerate re-offsets ids per block, splitting "
                 "every segment the seeded pass-2 stitched across faces")
-        if agglomeration:
-            raise NotImplementedError(
-                "agglomeration=True (AgglomerateTask) is not ported yet "
-                "(ROADMAP A9b)")
         self.input_path = input_path
         self.input_key = input_key
         self.output_path = output_path
@@ -684,6 +1003,7 @@ class WatershedWorkflow(Task):
         self.mask_path = mask_path
         self.mask_key = mask_key
         self.two_pass = two_pass
+        self.agglomeration = agglomeration
         self.tmp_folder = tmp_folder
         self.config_dir = config_dir
         self.max_jobs = max_jobs
@@ -706,6 +1026,14 @@ class WatershedWorkflow(Task):
         else:
             dep = WatershedTask(dependency=self.dependency, **ws_kwargs,
                                 **common)
+        if self.agglomeration:
+            # in place: a block-local transform, each block reads and
+            # rewrites only its own chunk-aligned region
+            dep = AgglomerateTask(
+                input_path=self.input_path, input_key=self.input_key,
+                labels_path=self.output_path, labels_key=self.output_key,
+                output_path=self.output_path, output_key=self.output_key,
+                dependency=dep, **common)
         return RelabelWorkflow(
             input_path=self.output_path, input_key=self.output_key,
             identifier="relabel_ws", dependency=dep, **common)

@@ -189,33 +189,73 @@ def test_default_device_is_the_card_and_raises_without_one(tmp_path):
                                   "fused_segmentation.status"))
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"agglomeration": True}, "ROADMAP A9"),
-])
-def test_unported_workflow_options_raise(tmp_path, kw, match):
-    """The split chain runs (``fused=False`` is ported); the watershed
-    workflow's block-local agglomeration is not, and raises naming its
-    ROADMAP item."""
+def test_port_exports_are_the_jax_package_exports():
+    """Every name the port exports is one the JAX package exports, and the
+    ported workflows the JAX package exports can be imported from the
+    port's top level."""
+    import cluster_tools_tpu
     import cluster_tools_tpu_torch as ctp
 
-    ctp.MulticutSegmentationWorkflow(
-        input_path="a.n5", input_key="x", ws_path="a.n5", ws_key="w",
-        problem_path="p.n5", output_path="a.n5", output_key="s",
-        tmp_folder=str(tmp_path), config_dir=str(tmp_path), fused=False)
-    with pytest.raises(NotImplementedError, match=match):
-        ctp.WatershedWorkflow(
-            input_path="a.n5", input_key="x", output_path="a.n5",
-            output_key="w", tmp_folder=str(tmp_path),
-            config_dir=str(tmp_path), **kw)
+    assert set(ctp.__all__) <= set(cluster_tools_tpu.__all__), \
+        sorted(set(ctp.__all__) - set(cluster_tools_tpu.__all__))
+    for name in ("GraphWorkflow", "MulticutWorkflow", "RelabelWorkflow",
+                 "LiftedMulticutSegmentationWorkflow",
+                 "AgglomerativeClusteringWorkflow", "AgglomerateTask",
+                 "WatershedFromSeedsTask",
+                 "LiftedFeaturesFromNodeLabelsWorkflow",
+                 "LiftedMulticutWorkflow"):
+        assert name in ctp.__all__ and getattr(ctp, name).__module__ \
+            .startswith("cluster_tools_tpu_torch."), name
+
+
+def test_lifted_and_agglomeration_modules_are_held_to_the_rule():
+    """The modules of the lifted multicut and agglomerative clustering
+    segmentations are among those the two import checks walk."""
+    mods = set(_port_modules())
+    for name in ("native", "workflows.lifted_features",
+                 "workflows.lifted_multicut",
+                 "workflows.agglomerative_clustering"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+
+
+@pytest.mark.parametrize("which", ["watershed_from_seeds", "agglomerate",
+                                   "lifted_multicut", "agglomerative"])
+def test_new_device_tasks_raise_without_a_card(tmp_path, which):
+    """The seeded watershed and agglomeration tasks and the two new
+    segmentation workflows (whose problem assembly runs on the device)
+    default to the card, and raise on a host without one before any work
+    runs."""
+    import torch
+
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a host without a CUDA device")
+    cfg = str(tmp_path / "cfg")
+    ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8]})
+    common = dict(tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
+    io = dict(input_path="a.n5", input_key="x", output_path="a.n5",
+              output_key="s")
+    seg = dict(ws_path="a.n5", ws_key="w", problem_path="p.n5", **io)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if which == "watershed_from_seeds":
+            ctp.WatershedFromSeedsTask(seeds_path="a.n5", seeds_key="k",
+                                       **io, **common)
+        elif which == "agglomerate":
+            ctp.AgglomerateTask(labels_path="a.n5", labels_key="w", **io,
+                                **common)
+        elif which == "lifted_multicut":
+            ctp.build([ctp.LiftedMulticutSegmentationWorkflow(
+                labels_path="a.n5", labels_key="l", lifted_prefix="l",
+                **seg, **common)])
+        else:
+            ctp.build([ctp.AgglomerativeClusteringWorkflow(
+                threshold=0.5, **seg, **common)])
 
 
 @pytest.mark.parametrize("task,task_cfg,kw,match", [
-    ("watershed", {"apply_ws_2d": True}, {}, "ROADMAP A9b"),
-    ("watershed", {"non_maximum_suppression": True}, {}, "ROADMAP A9b"),
-    ("watershed", {"ws_algorithm": "flood"}, {}, "ROADMAP A9b"),
-    ("watershed", {"impl": "host"}, {}, "ROADMAP A9b"),
     ("watershed", {}, {"target": "mesh"}, "ROADMAP A14"),
-    ("watershed_from_seeds", {}, {}, "ROADMAP A9b"),
     ("block_edge_features", {"filters": ["gaussianSmoothing"],
                              "sigmas": [1.0]}, {}, "ROADMAP A13"),
 ])
@@ -223,8 +263,7 @@ def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
                                             match):
     from cluster_tools_tpu_torch.core.config import ConfigDir
     from cluster_tools_tpu_torch.workflows.features import BlockEdgeFeatures
-    from cluster_tools_tpu_torch.workflows.watershed import (
-        WatershedFromSeedsTask, WatershedTask)
+    from cluster_tools_tpu_torch.workflows.watershed import WatershedTask
 
     cfg = str(tmp_path / "cfg")
     ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8],
@@ -235,10 +274,6 @@ def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
         if task == "watershed":
             WatershedTask(input_path="a.n5", input_key="x",
                           output_path="a.n5", output_key="w", **common)
-        elif task == "watershed_from_seeds":
-            WatershedFromSeedsTask(
-                input_path="a.n5", input_key="x", seeds_path="a.n5",
-                seeds_key="s", output_path="a.n5", output_key="w", **common)
         else:
             BlockEdgeFeatures(
                 input_path="a.n5", input_key="x", labels_path="a.n5",
@@ -247,8 +282,6 @@ def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
 
 
 @pytest.mark.parametrize("task_cfg,match", [
-    ({"ws_method": "hybrid"}, "ROADMAP A7b"),
-    ({"ws_method": "legacy"}, "ROADMAP A7b"),
     ({"mesh_resident": True}, "ROADMAP A14"),
 ])
 def test_unported_fused_options_raise(tmp_path, task_cfg, match):
@@ -261,6 +294,23 @@ def test_unported_fused_options_raise(tmp_path, task_cfg, match):
                                         "device": "cpu"})
     ConfigDir(cfg).write_task_config("fused_segmentation", task_cfg)
     with pytest.raises(NotImplementedError, match=match):
+        FusedSegmentationBlocks(
+            input_path="a.n5", input_key="x", output_path="a.n5",
+            output_key="w", problem_path="p.n5",
+            tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
+
+
+def test_unknown_fused_ws_method_raises(tmp_path):
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+    from cluster_tools_tpu_torch.workflows.fused_pipeline import \
+        FusedSegmentationBlocks
+
+    cfg = str(tmp_path / "cfg")
+    ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8],
+                                        "device": "cpu"})
+    ConfigDir(cfg).write_task_config("fused_segmentation",
+                                     {"ws_method": "basins"})
+    with pytest.raises(ValueError, match="unknown ws_method"):
         FusedSegmentationBlocks(
             input_path="a.n5", input_key="x", output_path="a.n5",
             output_key="w", problem_path="p.n5",
