@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_profile.py
+    python3 chip_profile.py [--roi]
 
 It builds the port's CUDA kernel, makes one ``[50, 512, 512]`` block of
 the synthetic benchmark volume (seed 0) with its ``[4, 32, 32]`` halo,
@@ -11,7 +11,9 @@ runs the whole per-block chain (``workflows/fused_pipeline.resident_block``,
 the default fused task config) a few times, prints the wall seconds of
 each run, then profiles one run with ``torch.profiler`` and prints the
 device time by operator, the min-plus kernel's share and the
-device-to-device copies' share.  Needs a card;
+device-to-device copies' share.  With ``--roi`` the block is the resident
+server's: ``[50, 256, 256]`` with the same halo and
+``core.server.FusedROIPipeline``'s parameters.  Needs a card;
 exits non-zero without one.
 """
 
@@ -45,7 +47,9 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     print(info, flush=True)
     build_kernel()
-    block, halo = (50, 512, 512), (4, 32, 32)
+    roi = "--roi" in sys.argv[1:]
+    block = (50, 256, 256) if roi else (50, 512, 512)
+    halo = (4, 32, 32)
     _, bnd = synthetic_instance(block, seed=0)
     vol = as_uint8(bnd)
     padded = vol[np.ix_(*[reflect_indices(-h, b + h, b)
@@ -59,6 +63,12 @@ def main() -> int:
         alpha=cfg["alpha"], min_size=cfg["size_filter"], e_max=cfg["e_max"],
         rle_cap=cfg["rle_cap"], refine_rounds=cfg["refine_rounds"],
         pair_cap=cfg["pair_cap"], coarse_factor=cfg["coarse_factor"])
+    if roi:
+        from cluster_tools_tpu_torch.core.server import FusedROIPipeline
+
+        p = FusedROIPipeline(block, block_shape=block, halo=halo)._params(
+            True)
+    print(f"block {list(block)} params {p}", flush=True)
     walls = []
     for _ in range(4):
         torch.cuda.synchronize()

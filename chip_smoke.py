@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, then runs twelve phases, each of which must pass:
+sources, then runs thirteen phases, each of which must pass:
 
 1. the build;
 2. the min-plus EDT kernel against its plain PyTorch version (in place
@@ -77,7 +77,22 @@ sources, then runs twelve phases, each of which must pass:
    truth, launches counted;
    (c) ``LiftedMulticutSegmentationWorkflow`` and
    ``AgglomerativeClusteringWorkflow`` over phase 4's fragments on that
-   crop, scored against the ground truth.
+   crop, scored against the ground truth;
+13. serving: (a) ``FusedROIPipeline`` on ``(32, 128, 128)``, card
+   against CPU, default config and ``sigma_weights: 0``, identical; (b)
+   the min-plus kernel against its plain version on the serving outer
+   block ``(58, 320, 320)`` (each axis in place and the whole EDT), then
+   ``loadgen.run_threaded`` drives ``ResidentSegmentationServer`` over
+   ``FusedROIPipeline((50, 512, 512), block_shape=(50, 256, 256))`` on
+   the card with 8 open-loop requests from 4 tenants (crops of phase 4's
+   volume): every request done, warm, 4 ``sync-execute`` each, CREMI
+   under its gate, 96 kernel launches, the metrics snapshot lint-clean;
+   (c) the edit lane beside it: the multicut problem of phase 12's crop
+   over phase 4's fragments, 3 merges and 3 splits through
+   ``EditPipeline`` while other tenants' bulk requests queue, each
+   edit's incremental result equal to the from-scratch solve, only the
+   touched output blocks rewritten, every edit ahead of the queued bulk
+   requests.
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -225,13 +240,13 @@ def block_mask(outer, device="cuda"):
     return u8.to(torch.float32) * (1.0 / 255.0) < 0.25
 
 
-def kernel_vs_plain(outer, device="cuda"):
-    """The CUDA min-plus kernel against its plain PyTorch version on the
-    card: bitwise at unit spacing, rtol 1e-6 at other spacings.  Timed
-    (median of CUDA-event timings) in place along each axis of one outer
-    block of the main path, on the inputs its EDT gives each axis, and as
-    the whole EDT of the block (three launches: the first reads the mask,
-    the last writes the sqrt)."""
+def block_vs_plain(outer, device="cuda"):
+    """The CUDA min-plus kernel against its plain PyTorch version on one
+    outer block of a path, bitwise: in place along each axis, on the
+    inputs its EDT gives each axis, and as the whole EDT of the block
+    (three launches: the first reads the mask, the last writes the
+    sqrt).  Each is timed (median of CUDA-event timings); returns (the
+    axis rows, the max abs error, the mask)."""
     import torch
 
     from cluster_tools_tpu_torch.ops import edt
@@ -265,7 +280,19 @@ def kernel_vs_plain(outer, device="cuda"):
                  fg), reps=3, warmup=1),
              "bound_ms": bytes_bound_ms(21.0 * fg.numel())}
     log(f"kernel-timed {json.dumps(whole)}")
+    return timed, max_err, fg
 
+
+def kernel_vs_plain(outer, device="cuda"):
+    """The CUDA min-plus kernel against its plain PyTorch version on the
+    card: bitwise at unit spacing, rtol 1e-6 at other spacings, on one
+    outer block of the main path (``block_vs_plain``), per slice, on
+    constant, ragged and anisotropic volumes and on ragged rows."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops import edt
+
+    timed, max_err, fg = block_vs_plain(outer, device)
     checks = [("per-slice axes=(1,2)", fg, (1, 2), None, True),
               ("all-BIG volume", torch.ones_like(fg), None, None, True),
               ("all-zero volume", torch.zeros_like(fg), None, None, True),
@@ -1822,6 +1849,394 @@ def crop_paths(root: str, store: str, block, gt_c: np.ndarray):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving — the resident server over the fused ROI pipeline, its
+# load harness and SLO engine, and the proofreading edit lane
+# ---------------------------------------------------------------------------
+
+#: 13a's card-vs-CPU ROI and geometry
+SERVE_SMALL = (32, 128, 128)
+SERVE_SMALL_GEOM = {"block_shape": (16, 64, 64), "halo": (2, 8, 8)}
+#: 13b's canonical ROI: four blocks of the main path's depth
+SERVE_ROI = (50, 512, 512)
+SERVE_GEOM = {"block_shape": (50, 256, 256), "halo": (4, 32, 32)}
+#: 13b's open-loop load: 8 requests from 4 tenants at 1 request/s
+SERVE_LOAD = {"seed": 7, "rate_hz": 1.0, "n_requests": 8, "n_tenants": 4}
+#: 13c: merges and splits mined from the crop's problem, and the bulk
+#: requests queued from other tenants while they arrive
+EDIT_MERGES = 3
+EDIT_SPLITS = 3
+EDIT_BULK_TENANTS = ("bulk-a", "bulk-b", "bulk-c")
+EDIT_BULK_PER_TENANT = 2
+
+
+def _pipeline_class():
+    """The port's ``FusedROIPipeline`` with CUDA events around each block
+    call (the card's busy share) and each request's segmentation kept by
+    the index of its crop (its score against the ground truth)."""
+    import torch
+
+    from cluster_tools_tpu_torch.core.server import FusedROIPipeline
+
+    class Pipeline(FusedROIPipeline):
+        def __init__(self, *args, crops=(), **kw):
+            super().__init__(*args, **kw)
+            self.crop_index = {id(c): i for i, c in enumerate(crops)}
+            self.events = []
+            self.results = {}
+
+        def prepare(self, volume):
+            ctx = super().prepare(volume)
+            ctx["crop"] = self.crop_index.get(id(volume))
+            return ctx
+
+        def run_block(self, ctx, bid):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super().run_block(ctx, bid)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def finalize(self, ctx, block_results):
+            res = super().finalize(ctx, block_results)
+            self.results[ctx["crop"]] = res["segmentation"]
+            return res
+
+    return Pipeline
+
+
+def _run_roi(pipe, vol):
+    ctx = pipe.prepare(vol)
+    blocks = [pipe.run_block(ctx, bid) for bid in range(pipe.n_blocks)]
+    return blocks, pipe.finalize(ctx, blocks)
+
+
+def serve_card_vs_cpu():
+    """Phase 13a: ``FusedROIPipeline`` (no server) on the card and on the
+    CPU, default config and ``sigma_weights: 0``: identical fragment
+    counts, dense labels, edge lists and segmentation, features within
+    1e-6; returns the kernel's launches (3 per block on the card)."""
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.server import FusedROIPipeline
+    from cluster_tools_tpu_torch.utils.synthetic import (as_uint8,
+                                                         synthetic_instance)
+
+    vol = as_uint8(synthetic_instance(SERVE_SMALL, seed=5)[1])
+    kernels.reset_counts()
+    n_blocks = 0
+    for name, cfg in (("default", {}), ("sigma_weights-0",
+                                        {"sigma_weights": 0.0})):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            pipe = FusedROIPipeline(SERVE_SMALL, config=cfg, device=device,
+                                    **SERVE_SMALL_GEOM)
+            t0 = time.perf_counter()
+            runs[device] = _run_roi(pipe, vol)
+            log(f"serve-small {name} {device} wall_s "
+                f"{time.perf_counter() - t0}")
+        n_blocks += pipe.n_blocks
+        (cb, cres), (hb, hres) = runs["cuda"], runs["cpu"]
+        feat_err = 0.0
+        for bid, (c, h) in enumerate(zip(cb, hb)):
+            if c[0] != h[0] or not np.array_equal(c[1], h[1]) or \
+                    not np.array_equal(c[2], h[2]):
+                raise AssertionError(f"serve-small {name} block {bid}: "
+                                     "card != CPU fragments or edges")
+            feat_err = max(feat_err, float(np.abs(c[3] - h[3]).max())
+                           if len(c[3]) else 0.0)
+        if feat_err > 1e-6 or not np.array_equal(cres["segmentation"],
+                                                 hres["segmentation"]):
+            raise AssertionError(f"serve-small {name}: card != CPU "
+                                 f"(features max abs err {feat_err})")
+        log(f"serve-small {name} card == CPU: n_fragments "
+            f"{cres['n_fragments']} n_segments {cres['n_segments']} "
+            f"n_edges {cres['n_edges']} feats max abs err {feat_err}")
+    launches = kernels.counts()["minplus"]
+    if launches != 3 * n_blocks:
+        raise AssertionError(f"phase 13a: min-plus kernel launched "
+                             f"{launches} times for {n_blocks} card blocks")
+    return launches
+
+
+def serve_crops(root: str, gt: np.ndarray, n: int):
+    """``n`` ROI crops of phase 4's volume at seeded offsets, and the
+    ground truth there."""
+    rng = np.random.RandomState(SERVE_LOAD["seed"])
+    main = os.path.join(root, "main", "data.n5")
+    crops, gts = [], []
+    for _ in range(n):
+        off = [int(rng.randint(0, s - r + 1))
+               for s, r in zip(FULL_SHAPE, SERVE_ROI)]
+        box = tuple(slice(o, o + r) for o, r in zip(off, SERVE_ROI))
+        crops.append(np.ascontiguousarray(read_dataset(main, "bmap", box)))
+        gts.append(gt[box])
+    return crops, gts
+
+
+def _request_rows(workdir: str):
+    rows = []
+    for name in sorted(os.listdir(workdir)):
+        if name.startswith("request_") and name.endswith(".status"):
+            with open(os.path.join(workdir, name)) as fh:
+                rows.append(json.load(fh))
+    return rows
+
+
+def serve_path(root: str, crops, gts):
+    """Phase 13b: the min-plus kernel against its plain version on the
+    serving outer block, then ``loadgen.run_threaded`` drives the port's
+    resident server over ``FusedROIPipeline`` on the card at SERVE_ROI;
+    every request done, warm (no compile, no load from ``_build/``), one
+    ``sync-execute`` per block and CREMI under its gate, 3 launches per
+    block, the metrics snapshot lint-clean; returns (launches, the
+    kernel's max abs error, the pipeline)."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core import loadgen, slo, telemetry
+
+    spec = loadgen.LoadSpec(**SERVE_LOAD)
+    schedule = loadgen.generate_schedule(spec)
+    by_arrival = {a.t: crops[i] for i, a in enumerate(schedule)}
+    pipe = _pipeline_class()(SERVE_ROI, crops=crops, **SERVE_GEOM)
+    _, max_err, _ = block_vs_plain(pipe.outer_shape)
+    log(f"serve-kernel outer block {list(pipe.outer_shape)} kernel == plain"
+        f", max abs err {max_err}")
+    t0 = time.perf_counter()
+    pipe.ensure_compiled()
+    log(f"serve warm-up ensure_compiled_s {time.perf_counter() - t0}")
+    pipe.events.clear()
+    workdir = os.path.join(root, "serve")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    row = loadgen.run_threaded(
+        spec, workdir, pipeline=pipe, slo_engine=slo.SLOEngine(),
+        volume_fn=lambda a: by_arrival[a.t], drain_timeout=600.0)
+    torch.cuda.synchronize()
+    launches = kernels.counts()["minplus"]
+    peak = torch.cuda.max_memory_allocated()
+    # CUDA events around whole run_block calls: the card's busy time
+    # plus the stream's idle gaps while the host dispatches, so an upper
+    # bound on the busy share
+    block_call_ms = sum(s.elapsed_time(e) for s, e in pipe.events)
+    statuses = _request_rows(workdir)
+    wall = row["wall_s"]
+    lat = np.asarray([st["wall_time"] for st in statuses])
+    stages = {}
+    for st in statuses:
+        for k, v in st["stages"].items():
+            stages[k] = stages.get(k, 0.0) + v
+    nvox = len(statuses) * int(np.prod(SERVE_ROI))
+    log(f"serve-load wall_s {wall} served {row['served']} failed "
+        f"{row['failed']} drained {row['drained']} requests_per_s "
+        f"{len(statuses) / wall} voxels_per_s {nvox / wall} latency_s p50 "
+        f"{np.percentile(lat, 50)} p95 {np.percentile(lat, 95)} max "
+        f"{lat.max()} peak_device_bytes {peak} block_call_ms "
+        f"{block_call_ms} block_call_share {block_call_ms / 1e3 / wall} "
+        f"block_calls "
+        f"{len(pipe.events)} minplus launches {launches}")
+    log(f"serve-load stage_sums_s {json.dumps(stages)}")
+    log(f"serve-load lanes {json.dumps(row['lanes'])} slo_overload "
+        f"{row['slo']['overload']}")
+    n_blocks = pipe.n_blocks
+    for st in statuses:
+        log(f"serve-request {st['request']} lane {st['lane']} state "
+            f"{st['state']} wall_time {st['wall_time']} queue_wait_s "
+            f"{st['queue_wait_s']} exec_cache {json.dumps(st['exec_cache'])}"
+            f" stages {json.dumps(st['stages'])} n_fragments "
+            f"{st.get('n_fragments')} n_segments {st.get('n_segments')}")
+        if st["state"] != "done" or st["error"] is not None:
+            raise AssertionError(f"request {st['request']}: {st['state']} "
+                                 f"{st['error']}")
+        # ``hits`` only records that the request resolved the libraries;
+        # no compile and no load from ``_build/`` is what makes it warm
+        if st["exec_cache"].get("compiles", 0) != 0 or \
+                st["exec_cache"].get("disk_hits", 0) != 0 or \
+                st["exec_cache"].get("hits", 0) < 1:
+            raise AssertionError(f"request {st['request']} not warm: "
+                                 f"{st['exec_cache']}")
+        if st["stage_counts"].get("sync-execute") != n_blocks:
+            raise AssertionError(f"request {st['request']}: stage counts "
+                                 f"{st['stage_counts']}")
+    if len(statuses) != spec.n_requests or row["served"] != \
+            spec.n_requests or not row["drained"]:
+        raise AssertionError(f"served {row['served']} of "
+                             f"{spec.n_requests} requests")
+    for i, seg in sorted(pipe.results.items()):
+        sc = scores(seg, gts[i])
+        log(f"serve-quality crop {i} {json.dumps(sc)}")
+        if not np.isfinite(list(sc.values())).all() or \
+                sc["cremi"] > CREMI_GATE:
+            raise AssertionError(f"crop {i}: quality out of bounds {sc}")
+    if sorted(pipe.results) != list(range(spec.n_requests)):
+        raise AssertionError(f"scored crops {sorted(pipe.results)}")
+    with open(os.path.join(workdir, "metrics.prom")) as fh:
+        errors = telemetry.lint_prometheus(fh.read())
+    if errors:
+        raise AssertionError(f"metrics.prom lint: {errors[:5]}")
+    if launches != 3 * n_blocks * spec.n_requests:
+        raise AssertionError(f"phase 13b: min-plus kernel launched "
+                             f"{launches} times")
+    return launches, max_err, pipe
+
+
+def _edit_pairs(session, table, n_pairs, same_segment):
+    """Disjoint adjacent fragment pairs sharing a subproblem block, in
+    the same (split) or different (merge) segments: a deterministic scan
+    over the s0 edge list."""
+    used, out = set(), []
+    for u, v in session.base_uv:
+        ou, ov = int(session.s0_nodes[u]), int(session.s0_nodes[v])
+        if ou == 0 or ov == 0 or ou in used or ov in used:
+            continue
+        if bool(table[ou] == table[ov]) != same_segment:
+            continue
+        if not session.affected_blocks([ou, ov]):
+            continue
+        out.append((ou, ov))
+        used.update((ou, ov))
+        if len(out) == n_pairs:
+            break
+    return out
+
+
+def edit_lane(root: str, store: str, pipe, crops):
+    """Phase 13c: the multicut problem of phase 12's crop over phase 4's
+    fragments (``n_scales=1``), an ``EditPipeline`` on the ``edit`` lane
+    of a server whose default pipeline is 13b's; 3 merges and 3 splits
+    from their own tenant while other tenants' bulk requests queue.  Each
+    edit's incremental result equals the from-scratch solve, only the
+    touched output blocks change, every edit finishes before the bulk
+    requests still queued when it arrived; returns the kernel's launches
+    (the bulk requests': the edits run on the host)."""
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+    from cluster_tools_tpu_torch.core.server import \
+        ResidentSegmentationServer
+    from cluster_tools_tpu_torch.edits import (EditLog, EditPipeline,
+                                               EditSession, stable_relabel)
+
+    wd = os.path.join(root, "edits")
+    tmp = os.path.join(wd, "tmp")
+    problem = os.path.join(wd, "problem.n5")
+    wf = ctp.MulticutSegmentationWorkflow(
+        input_path=store, input_key="bmap", ws_path=store, ws_key="frags",
+        problem_path=problem, output_path=store, output_key="seg_edit",
+        tmp_folder=tmp, config_dir=config_dir(wd, BLOCK, "cuda"),
+        max_jobs=os.cpu_count() or 1, target="gpu", n_scales=1,
+        fused=False)
+    wall = timed_build(wf, "cuda")
+    assignments = os.path.join(tmp, "multicut_assignments.npy")
+    frags = read_dataset(store, "frags")
+    seg_before = read_dataset(store, "seg_edit")
+    table0 = np.load(assignments)
+    session = EditSession(problem)
+    log(f"edit-problem wall_s {wall} n_nodes {session.n_nodes} n_edges "
+        f"{len(session.base_uv)} n_subproblems {session.blocking.n_blocks}")
+    stream = ([("merge", p) for p in _edit_pairs(session, table0,
+                                                 EDIT_MERGES, False)]
+              + [("split", p) for p in _edit_pairs(session, table0,
+                                                   EDIT_SPLITS, True)])
+    if len(stream) != EDIT_MERGES + EDIT_SPLITS:
+        raise AssertionError(f"mined {len(stream)} edits")
+
+    tables = []
+
+    class Lane(EditPipeline):
+        """The edit lane, keeping the lookup table each edit left."""
+
+        def finalize(self, ctx, block_results):
+            res = super().finalize(ctx, block_results)
+            tables.append(np.load(self.assignment_path))
+            return res
+
+    elog = EditLog(os.path.join(wd, "edits.jsonl"))
+    lane = Lane(session, elog, assignments, ws_path=store, ws_key="frags",
+                output_path=store, output_key="seg_edit")
+    kernels.reset_counts()
+    srv = ResidentSegmentationServer(os.path.join(wd, "srv"), pipe,
+                                     lane_pipelines={"edit": lane})
+    bulk = [srv.submit(t, crops[(i * len(EDIT_BULK_TENANTS) + j)
+                                % len(crops)])
+            for i in range(EDIT_BULK_PER_TENANT)
+            for j, t in enumerate(EDIT_BULK_TENANTS)]
+    srv.start()
+    try:
+        # edits arrive once the first bulk request is on the card
+        deadline = time.monotonic() + 60.0
+        while bulk[0]._request.started_at is None:
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 13c: first bulk request never "
+                                     "started")
+            time.sleep(0.01)
+        edits = [srv.submit("proofreader", {"op": op, "fragments": list(p)},
+                            lane="edit") for op, p in stream]
+        if not srv.drain(timeout=600):
+            raise AssertionError("phase 13c: server did not drain")
+    finally:
+        srv.shutdown(drain=False)
+    launches = kernels.counts()["minplus"]
+    results = [h.result(0) for h in edits]
+    for h in bulk:
+        h.result(0)
+    for h, res in zip(edits, results):
+        # the handle exposes no timestamps: they are on its request
+        r = h._request
+        # bulk requests not yet claimed when the edit arrived
+        queued = [b._request for b in bulk
+                  if b._request.started_at > r.submitted_at]
+        overtaken = [q.req_id for q in queued
+                     if q.finished_at < r.finished_at]
+        log(f"edit {res['op']} {res['fragments']} round_trip_s "
+            f"{res['round_trip_s']} latency_s "
+            f"{r.finished_at - r.submitted_at} queue_wait_s "
+            f"{r.started_at - r.submitted_at} affected "
+            f"{res['affected_blocks']} touched {res['touched_blocks']} "
+            f"changed_fragments {res['changed_fragments']} "
+            f"bulk_queued_at_arrival {len(queued)}")
+        if overtaken:
+            raise AssertionError(f"edit {r.req_id} finished after queued "
+                                 f"bulk requests {overtaken}")
+    # incremental == scratch after every edit: a fresh session replays
+    # the first i edits and solves every subproblem cold
+    records = elog.records()
+    nodes = session.s0_nodes.astype("int64")
+    prev = table0
+    for i, table in enumerate(tables):
+        scratch = EditSession(problem)
+        for rec in records[:i + 1]:
+            scratch.apply_edit(rec)
+        want = stable_relabel(prev, nodes, scratch.solve(incremental=False))
+        if not np.array_equal(table, want):
+            raise AssertionError(f"edit {i}: incremental != scratch")
+        prev = table
+    log(f"edit incremental == scratch for {len(tables)} edits; counters "
+        f"{json.dumps(session.counters)}")
+    seg_after = read_dataset(store, "seg_edit")
+    touched = sorted({b for res in results for b in res["touched_blocks"]})
+    blocking = Blocking(list(frags.shape), list(BLOCK))
+    for bid in range(blocking.n_blocks):
+        bb = blocking.get_block(bid).bb
+        if bid in touched:
+            ok = np.array_equal(seg_after[bb], prev[frags[bb]])
+        else:
+            ok = np.array_equal(seg_after[bb], seg_before[bb])
+        if not ok:
+            raise AssertionError(f"phase 13c: output block {bid} wrong")
+    if not np.array_equal(seg_after, prev[frags]):
+        raise AssertionError("phase 13c: output != patched table")
+    log(f"edit output blocks rewritten {touched} of {blocking.n_blocks}; "
+        f"bulk minplus launches {launches}")
+    if launches != 3 * pipe.n_blocks * len(bulk):
+        raise AssertionError(f"phase 13c: min-plus kernel launched "
+                             f"{launches} times for {len(bulk)} bulk "
+                             "requests")
+    return launches
+
 
 def main() -> int:
     started = time.perf_counter()
@@ -1910,6 +2325,14 @@ def main() -> int:
                                  BLOCK, gt_crop)
         crop_launches = phase("12bc", crop_paths, root, crop_store, BLOCK,
                               gt_crop)
+        # phase 13: serving on the card, then the edit lane beside it
+        serve_launches = {"13a": phase("13a", serve_card_vs_cpu)}
+        crops, crop_gts = serve_crops(root, gt, SERVE_LOAD["n_requests"])
+        serve_launches["13b"], serve_err, serve_pipe = phase(
+            "13b", serve_path, root, crops, crop_gts)
+        max_err = max(max_err, serve_err)
+        serve_launches["13c"] = phase("13c", edit_lane, root, crop_store,
+                                      serve_pipe, crops)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1917,12 +2340,14 @@ def main() -> int:
     by_phase = {"4": record["launches"][k.name],
                 "6": split["launches"][k.name],
                 **{f"12a-{m}": n for m, n in variant_launches.items()},
-                **{f"12b-{m}": n for m, n in crop_launches.items()}}
+                **{f"12b-{m}": n for m, n in crop_launches.items()},
+                **serve_launches}
     line = {"kernels": [{
         "name": k.name, "route": k.route, "source": k.source,
         "replaces": k.replaces,
         # the main paths' runs: the fused chain, the split chain, the fused
-        # chain's hybrid and legacy executions, the watershed's options
+        # chain's hybrid and legacy executions, the watershed's options,
+        # the ROI pipeline card against CPU and on the resident server
         "launches": sum(by_phase.values()),
         "launches_by_phase": by_phase,
         "max_abs_err": max_err,

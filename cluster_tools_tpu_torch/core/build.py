@@ -9,6 +9,14 @@ stale binary (from an older checkout: git does not keep mtimes) is never
 loaded for edited sources.  Concurrent builders each publish a complete
 file by atomic rename.  A failed build raises with the compiler's output:
 no caller carries on without its library.
+
+The built libraries are the port's counterpart of the JAX package's
+executable cache: ``_build/`` is its disk tier and ``_built`` its memory
+tier.  ``EXEC_CACHE_STATS`` counts each resolution under the JAX
+package's key names (``compiles``: a compiler ran; ``disk_hits``: the
+library was already in ``_build/``; ``hits``: resolved before in this
+process), so the resident server's status JSONs show a warm request as
+``hits >= 1, compiles == 0``.
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()
 _built: Dict[str, str] = {}
+
+EXEC_CACHE_STATS: Dict[str, int] = {"compiles": 0, "hits": 0,
+                                    "disk_hits": 0}
 
 
 class BuildError(RuntimeError):
@@ -45,11 +56,16 @@ def build_shared(name: str, sources: Sequence[str], compiler: List[str],
     """Compile ``sources`` with ``compiler`` (the command without the
     sources and ``-o``) into a shared library once per content hash and
     return its path."""
+    from .runtime import ledger_add
+
     lib = library_path(name, sources, compiler)
     with _lock:
         if lib in _built:
+            EXEC_CACHE_STATS["hits"] += 1
             return lib
-        if not os.path.exists(lib):
+        if os.path.exists(lib):
+            EXEC_CACHE_STATS["disk_hits"] += 1
+        else:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.tmp.{os.getpid()}"
             cmd = list(compiler) + list(sources) + ["-o", tmp]
@@ -63,5 +79,7 @@ def build_shared(name: str, sources: Sequence[str], compiler: List[str],
                 raise BuildError(f"building {name} failed:\n{' '.join(cmd)}"
                                  f"\n{res.stdout}\n{res.stderr}")
             os.replace(tmp, lib)
+            EXEC_CACHE_STATS["compiles"] += 1
         _built[lib] = lib
+        ledger_add("exec_cache", os.path.getsize(lib), 1)
         return lib

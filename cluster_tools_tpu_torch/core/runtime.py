@@ -199,6 +199,290 @@ def ledger_snapshot() -> Dict[str, Dict[str, int]]:
         return {k: dict(v) for k, v in sorted(_LEDGER.items())}
 
 
+# ---------------------------------------------------------------------------
+# the native-library cache (core/build.py) under the JAX package's
+# executable-cache names, and the runtime's Prometheus families
+# ---------------------------------------------------------------------------
+
+def exec_cache_snapshot() -> Dict[str, Any]:
+    from .build import EXEC_CACHE_STATS
+
+    return dict(EXEC_CACHE_STATS)
+
+
+def exec_cache_delta(before: Dict[str, Any]) -> Dict[str, Any]:
+    """Library-cache activity since ``before`` (only non-zero entries)."""
+    return {k: v - before.get(k, 0)
+            for k, v in exec_cache_snapshot().items()
+            if v - before.get(k, 0) > 0}
+
+
+def metrics_families():
+    """Runtime-level Prometheus families (process-lifetime counters) for
+    ``telemetry.write_prometheus``: per-stage seconds/entries/bytes from
+    the flat accumulators plus library-cache activity and hit ratio."""
+    st, cn, by = stages_snapshot(), counts_snapshot(), bytes_snapshot()
+    ec = exec_cache_snapshot()
+    led = ledger_snapshot()
+    hits = int(ec.get("hits", 0))
+    compiles = int(ec.get("compiles", 0))
+    ratio = hits / (hits + compiles) if (hits + compiles) else 0.0
+    return [
+        ("ctt_stage_seconds_total", "counter",
+         "Accumulated wall seconds per runtime stage",
+         [({"stage": k}, round(v, 6)) for k, v in sorted(st.items())]),
+        ("ctt_stage_entries_total", "counter",
+         "Accumulated entry count per runtime stage",
+         [({"stage": k}, int(v)) for k, v in sorted(cn.items())]),
+        ("ctt_stage_bytes_total", "counter",
+         "Accumulated bytes moved per runtime stage",
+         [({"stage": k}, int(v)) for k, v in sorted(by.items())]),
+        ("ctt_exec_cache_events_total", "counter",
+         "Native-library cache activity by event kind",
+         [({"kind": k}, v) for k, v in sorted(ec.items())]),
+        ("ctt_exec_cache_hit_ratio", "gauge",
+         "Native-library cache memory-tier hit ratio "
+         "(hits/(hits+compiles))",
+         [(None, round(ratio, 6))]),
+        ("ctt_ledger_bytes", "gauge",
+         "Live bytes pinned per buffer-ledger account (native libraries, "
+         "fragment/raw caches)",
+         [({"account": k}, int(v["bytes"]))
+          for k, v in sorted(led.items())] or [(None, 0)]),
+        ("ctt_ledger_entries", "gauge",
+         "Live entries per buffer-ledger account",
+         [({"account": k}, int(v["entries"]))
+          for k, v in sorted(led.items())] or [(None, 0)]),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# lock-order witness.  Opt-in instrumented Lock/RLock wrappers record
+# the per-thread acquisition graph at runtime: an edge A->B means "B was
+# acquired while A was held".  A cycle in that graph is a potential
+# deadlock (two threads interleaving the inverted orders wedge forever),
+# and a ``witness_blocking`` region entered while ANY lock is held breaks
+# the blocking-under-lock rule.  Disabled (the default), ``named_lock``
+# returns plain ``threading`` locks and ``witness_blocking`` is one
+# module-global read returning a shared no-op context manager.  Enable
+# with ``lock_witness_configure(enabled=True)`` BEFORE constructing the
+# locks to instrument (the server tests do).
+# ---------------------------------------------------------------------------
+
+_WITNESS_ENABLED = False
+
+
+class _WitnessState:
+    """Acquisition graph + flight recorder, guarded by its own plain
+    (never witnessed) leaf lock."""
+
+    def __init__(self, ring: int = 256):
+        from collections import deque
+
+        self.lock = threading.Lock()
+        self.edges: Dict[str, Set[str]] = {}
+        self.violations: List[Dict[str, Any]] = []
+        self.events = deque(maxlen=int(ring))
+        self.tls = threading.local()
+        self.locks_seen: Set[str] = set()
+
+    def held(self) -> List[str]:
+        return getattr(self.tls, "stack", [])
+
+    def _find_path(self, src: str, dst: str) -> Optional[List[str]]:
+        """DFS path src -> ... -> dst over recorded edges, or None."""
+        stack = [(src, [src])]
+        seen = set()
+        while stack:
+            node, path = stack.pop()
+            if node == dst:
+                return path
+            if node in seen:
+                continue
+            seen.add(node)
+            for nxt in self.edges.get(node, ()):
+                stack.append((nxt, path + [nxt]))
+        return None
+
+    def on_acquired(self, name: str) -> None:
+        stack = getattr(self.tls, "stack", None)
+        if stack is None:
+            stack = self.tls.stack = []
+        thread = threading.current_thread().name
+        with self.lock:
+            self.locks_seen.add(name)
+            self.events.append(("acquire", name, thread, list(stack)))
+            for h in stack:
+                if h == name:        # re-entrant RLock hold
+                    continue
+                fresh = name not in self.edges.get(h, ())
+                self.edges.setdefault(h, set()).add(name)
+                if fresh:
+                    # adding h->name: a pre-existing name->...->h path
+                    # closes a cycle = lock-order inversion
+                    path = self._find_path(name, h)
+                    if path is not None:
+                        self.violations.append({
+                            "kind": "lock-order-inversion",
+                            "thread": thread,
+                            "edge": [h, name],
+                            "cycle": path + [name],
+                        })
+        stack.append(name)
+
+    def on_released(self, name: str) -> None:
+        stack = getattr(self.tls, "stack", None)
+        if stack and name in stack:
+            # remove the LAST occurrence (re-entrant holds release LIFO)
+            for i in range(len(stack) - 1, -1, -1):
+                if stack[i] == name:
+                    del stack[i]
+                    break
+        with self.lock:
+            self.events.append(
+                ("release", name, threading.current_thread().name,
+                 list(stack or [])))
+
+    def on_blocking(self, desc: str) -> None:
+        stack = list(getattr(self.tls, "stack", []))
+        if not stack:
+            return
+        with self.lock:
+            self.violations.append({
+                "kind": "blocking-under-lock",
+                "thread": threading.current_thread().name,
+                "blocking": desc,
+                "held": stack,
+            })
+
+
+_WITNESS_STATE = _WitnessState()
+
+
+class _WitnessLock:
+    """Instrumented Lock/RLock: records acquisition order into the
+    witness graph.  API-compatible with ``threading.Condition(lock)``
+    (acquire/release/locked + context manager)."""
+
+    def __init__(self, name: str, rlock: bool = False):
+        self.name = name
+        self._inner = threading.RLock() if rlock else threading.Lock()
+
+    def acquire(self, blocking: bool = True, timeout: float = -1):
+        got = self._inner.acquire(blocking, timeout)
+        if got:
+            _WITNESS_STATE.on_acquired(self.name)
+        return got
+
+    def release(self) -> None:
+        _WITNESS_STATE.on_released(self.name)
+        self._inner.release()
+
+    def locked(self) -> bool:
+        return self._inner.locked()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+    def __repr__(self):  # pragma: no cover - debugging aid
+        return f"<_WitnessLock {self.name!r} {self._inner!r}>"
+
+
+class _NullBlocking:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_BLOCKING = _NullBlocking()
+
+
+class _WitnessBlocking:
+    __slots__ = ("desc",)
+
+    def __init__(self, desc: str):
+        self.desc = desc
+
+    def __enter__(self):
+        _WITNESS_STATE.on_blocking(self.desc)
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def witness_enabled() -> bool:
+    return _WITNESS_ENABLED
+
+
+def named_lock(name: str, rlock: bool = False):
+    """A lock for the witness to observe.  Disabled (default): a plain
+    ``threading.Lock``/``RLock`` — zero added cost.  Enabled: a
+    ``_WitnessLock`` recording the acquisition graph under ``name``."""
+    if not _WITNESS_ENABLED:
+        return threading.RLock() if rlock else threading.Lock()
+    return _WitnessLock(name, rlock=rlock)
+
+
+def witness_blocking(desc: str):
+    """Context manager marking a potentially-blocking region (file IO,
+    cross-thread waits).  Under the witness, entering one while any
+    witnessed lock is held records a blocking-under-lock violation.
+    Off path: one module-global read + a shared no-op object."""
+    if not _WITNESS_ENABLED:
+        return _NULL_BLOCKING
+    return _WitnessBlocking(desc)
+
+
+def lock_witness_configure(enabled: bool = True, ring: int = 256) -> None:
+    """Turn the witness on/off.  Enabling resets state; locks created
+    BEFORE enabling stay uninstrumented (create them after)."""
+    global _WITNESS_ENABLED, _WITNESS_STATE
+    _WITNESS_STATE = _WitnessState(ring=ring)
+    _WITNESS_ENABLED = bool(enabled)
+
+
+def lock_witness_reset() -> None:
+    """Clear the graph/violations, keeping the enabled flag."""
+    global _WITNESS_STATE
+    _WITNESS_STATE = _WitnessState(
+        ring=_WITNESS_STATE.events.maxlen or 256)
+
+
+def lock_witness_report() -> Dict[str, Any]:
+    """Flight-recorder-style snapshot: locks seen, acquisition edges,
+    violations, and the recent acquire/release event ring."""
+    st = _WITNESS_STATE
+    with st.lock:
+        return {
+            "enabled": _WITNESS_ENABLED,
+            "locks": sorted(st.locks_seen),
+            "edges": sorted((a, b) for a, bs in st.edges.items()
+                            for b in bs),
+            "violations": [dict(v) for v in st.violations],
+            "events": [
+                {"op": op, "lock": name, "thread": thread, "held": held}
+                for op, name, thread, held in st.events],
+        }
+
+
+def lock_witness_dump(path: str) -> str:
+    """Atomic JSON dump of the report (crash-analysis artifact)."""
+    config_mod.write_config(path, lock_witness_report())
+    return path
+
+
+
+
 
 
 def log(msg: str, stream=None) -> None:

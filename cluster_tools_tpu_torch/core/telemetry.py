@@ -12,7 +12,11 @@ thread:
 * a Chrome trace-event JSON exporter (:func:`export_chrome_trace`) that
   loads in Perfetto / chrome://tracing;
 * host RSS and device-memory probes (the device side reads
-  ``torch.cuda.memory_stats``) stamped on block spans at drain points.
+  ``torch.cuda.memory_stats``) stamped on block spans at drain points;
+* the resident server's metrics surface: cumulative-bucket latency
+  histograms, a Prometheus text-format writer with a promtool-style lint,
+  the registries of canonical stage and metric-family names, and the
+  crash flight recorder.
 
 Telemetry off is free: every instrumentation site guards on
 :func:`enabled` (one attribute read), and spans are emitted AFTER the
@@ -22,13 +26,16 @@ identical with telemetry on or off.
 
 from __future__ import annotations
 
+import bisect
 import itertools
 import json
 import os
+import re
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, \
+    Optional, Sequence, Tuple, Union
 
 #: stage-name prefixes attributed to the DEVICE PATH (device compute and
 #: host<->device transfers).  Shared with core/runtime.py's
@@ -37,6 +44,72 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 #: device time.
 DEVICE_STAGE_PREFIXES = ("sync-", "d2h-", "h2d-", "dispatch", "cap-retry",
                          "device-")
+
+#: every stage name the package passes to ``runtime.stage`` /
+#: ``stage_add`` / ``stage_bytes``.  A typo'd literal would silently open
+#: a new bucket in ``stage_counts``; tests/test_torch_serve_telemetry.py
+#: walks the package for stage literals and fails on any name missing
+#: here.
+STAGE_REGISTRY = {
+    # device path (see DEVICE_STAGE_PREFIXES)
+    "sync-compile",     # the server's warm-up: library builds + first block
+    "sync-execute",     # waits on a block's device work
+    "sync-stats",       # hybrid stage B waits
+    "dispatch",         # device work enqueue
+    "cap-retry",        # pair-capacity overflow redo
+    "h2d-upload",       # host -> device volume uploads
+    "d2h-compact", "d2h-dense", "d2h-edges", "d2h-rle",  # device -> host
+    "device-cc", "device-rle", "device-ws-redo",
+    # host path (never device time)
+    "host-build", "host-compact", "host-decode", "host-densify",
+    "host-fallback", "host-flood", "host-map", "host-reduce", "host-scan",
+    "host-solve", "predict",
+    # downloads overlapped with the next block's device work
+    "fetch-dense", "fetch-rle",
+    # loop-body counter of the hooking connected components
+    "cc-bodies",
+    # store IO
+    "store-read", "store-write",
+    # interactive proofreading lane (edits/)
+    "edit:resolve", "edit:solve", "edit:patch", "edit:write",
+}
+
+
+def is_registered(name: str) -> bool:
+    return name in STAGE_REGISTRY
+
+
+#: every Prometheus metric FAMILY name the package emits through
+#: :func:`write_prometheus` (the same discipline as STAGE_REGISTRY).
+METRIC_REGISTRY = {
+    # runtime counters (core/runtime.py metrics_families)
+    "ctt_stage_seconds_total", "ctt_stage_entries_total",
+    "ctt_stage_bytes_total", "ctt_exec_cache_events_total",
+    "ctt_exec_cache_hit_ratio",
+    # server gauges/counters/histograms (core/server.py write_metrics)
+    "ctt_server_queue_depth", "ctt_server_in_flight",
+    "ctt_server_requests_served_total",
+    "ctt_server_request_latency_seconds",
+    "ctt_server_queue_wait_seconds",
+    "ctt_server_tenant_latency_seconds",
+    "ctt_server_overload", "ctt_server_admission_rejected_total",
+    # SLO engine (core/slo.py via server metrics)
+    "ctt_slo_burn_rate", "ctt_slo_compliance",
+    # telemetry self-metrics (metrics_families below)
+    "ctt_telemetry_dropped_spans_total", "ctt_telemetry_ring_spans",
+    "ctt_memory_host_gb", "ctt_memory_device_gb",
+    "ctt_telemetry_flight_records_total",
+    # live-buffer ledger gauges (core/runtime.py metrics_families)
+    "ctt_ledger_bytes", "ctt_ledger_entries",
+    # interactive proofreading (edits/service.py metrics_families)
+    "ctt_edit_applied_total", "ctt_edit_subproblems_total",
+    "ctt_edit_warm_reused_total", "ctt_edit_fallback_total",
+    "ctt_edit_blocks_rewritten_total", "ctt_edit_round_trip_seconds",
+}
+
+
+def is_registered_metric(name: str) -> bool:
+    return name in METRIC_REGISTRY
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +138,7 @@ class _Recorder:
         self.enabled = False
         self.clock: Callable[[], float] = time.perf_counter
         self.spans: deque = deque(maxlen=_DEFAULT_RING)
+        self.dropped = 0
         self._next_sid = itertools.count(1)
         self._tls = threading.local()
         # correlation-id stack (module-global, NOT thread-local, on
@@ -108,6 +182,23 @@ def configure(enabled: Optional[bool] = None,
             _REC.clock = clock
         if enabled is not None:
             _REC.enabled = bool(enabled)
+
+
+def reset() -> None:
+    """Restore defaults: disabled, empty default-size ring, real clock,
+    span ids from 1, flight-recorder counter zeroed (tests call this so
+    telemetry state never leaks between tests)."""
+    global _FLIGHT_COUNT
+    with _REC.lock:
+        _REC.enabled = False
+        _REC.clock = time.perf_counter
+        _REC.spans = deque(maxlen=_DEFAULT_RING)
+        _REC.dropped = 0
+        _REC._next_sid = itertools.count(1)
+        _REC._tls = threading.local()
+        _REC.corr = []
+    with _FLIGHT_LOCK:
+        _FLIGHT_COUNT = 0
 
 
 class _CorrCtx:
@@ -156,6 +247,8 @@ def record(name: str, t0: float, t1: float, cat: str = "stage",
         parent = stack[-1] if stack else None
     with _REC.lock:
         sid = next(_REC._next_sid)
+        if len(_REC.spans) == _REC.spans.maxlen:
+            _REC.dropped += 1
         _REC.spans.append(Span(sid, parent, name, cat, float(t0),
                                float(t1), th.ident or 0, th.name,
                                _attach_corr(dict(attrs))))
@@ -211,6 +304,8 @@ class _SpanCtx:
             stack.pop()
         th = threading.current_thread()
         with _REC.lock:
+            if len(_REC.spans) == _REC.spans.maxlen:
+                _REC.dropped += 1
             _REC.spans.append(Span(self.sid, self.parent, self.name,
                                    self.cat, self._t0, t1, th.ident or 0,
                                    th.name, _attach_corr(self.attrs)))
@@ -237,6 +332,9 @@ def spans_snapshot() -> List[Span]:
     with _REC.lock:
         return list(_REC.spans)
 
+
+def dropped_count() -> int:
+    return _REC.dropped
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +437,67 @@ def annotate_memory(sp) -> None:
     sample_memory()
 
 
+#: counter-series / watermark-attr names whose max is the HOST memory
+#: peak, resp. the DEVICE memory peak
+_HOST_PEAK_SERIES = ("host_hwm_gb", "host_rss_gb",
+                     "mem_host_hwm_gb", "mem_host_rss_gb")
+_DEVICE_PEAK_SERIES = ("dev_peak_gb", "dev_in_use_gb",
+                      "mem_dev_peak_gb", "mem_dev_in_use_gb")
+
+
+def memory_rollup(spans: Optional[Sequence[Span]] = None
+                  ) -> Dict[str, Any]:
+    """Memory view of a trace: per-series counter stats (from
+    ``cat='counter'`` samples), per-span-name watermarks (from ``mem_*``
+    attrs the drain points stamp on block/slab/stage spans), and the host
+    and device peaks.  Peaks are None when the trace carries no memory
+    samples.  The flight recorder writes it into every dump."""
+    if spans is None:
+        spans = spans_snapshot()
+    counters: Dict[str, Dict[str, Any]] = {}
+    watermarks: Dict[str, Dict[str, float]] = {}
+    for s in spans:
+        if s.cat == "counter":
+            for k, v in s.attrs.items():
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    continue
+                c = counters.setdefault(k, {"n": 0, "max": None,
+                                            "last": None})
+                c["n"] += 1
+                c["max"] = float(v) if c["max"] is None \
+                    else max(c["max"], float(v))
+                c["last"] = float(v)
+        else:
+            mem = {k: float(v) for k, v in s.attrs.items()
+                   if k.startswith("mem_")
+                   and not isinstance(v, bool)
+                   and isinstance(v, (int, float))}
+            if mem:
+                d = watermarks.setdefault(s.name, {})
+                for k, v in mem.items():
+                    d[k] = max(d.get(k, v), v)
+    peaks = {"host": None, "device": None}
+    for which, series in (("host", _HOST_PEAK_SERIES),
+                          ("device", _DEVICE_PEAK_SERIES)):
+        cands = [counters[k]["max"] for k in series if k in counters]
+        cands += [wm[k] for wm in watermarks.values()
+                  for k in series if k in wm]
+        if cands:
+            peaks[which] = round(max(cands), 4)
+    return {
+        "peak_host_rss_gb": peaks["host"],
+        "peak_device_gb": peaks["device"],
+        "counters": {k: {"n": c["n"],
+                         "max": round(c["max"], 4),
+                         "last": round(c["last"], 4)}
+                     for k, c in sorted(counters.items())},
+        "span_watermarks": {name: {k: round(v, 4)
+                                   for k, v in sorted(wm.items())}
+                            for name, wm in sorted(watermarks.items())},
+    }
+
+
+
 # ---------------------------------------------------------------------------
 # Chrome trace-event export (Perfetto / chrome://tracing)
 # ---------------------------------------------------------------------------
@@ -418,3 +577,495 @@ def export_chrome_trace(path: str,
     events = _process_events(spans, 1, base, "cluster_tools_tpu_torch")
     return _write_trace_events(path, events)
 
+
+def _span_to_dict(s: Span) -> Dict[str, Any]:
+    return {"sid": s.sid, "parent": s.parent, "name": s.name,
+            "cat": s.cat, "t0": s.t0, "t1": s.t1, "tid": s.tid,
+            "tname": s.tname, "attrs": s.attrs}
+
+
+
+# ---------------------------------------------------------------------------
+# cumulative-bucket histogram (Prometheus semantics)
+# ---------------------------------------------------------------------------
+
+#: default request-latency bucket bounds (seconds) — the classic
+#: Prometheus latency ladder, wide enough to cover a 2 ms stub quantum
+#: and a 30 s cold compile in the same histogram.
+DEFAULT_LATENCY_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                           1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+def _le_str(bound: float) -> str:
+    return "+Inf" if bound == float("inf") else repr(float(bound))
+
+
+class Histogram:
+    """Prometheus-correct cumulative-bucket histogram.
+
+    An observation ``v`` lands in the FIRST bucket with ``v <= le``;
+    exported ``_bucket`` samples are cumulative, the mandatory
+    ``le="+Inf"`` bucket equals ``_count``, and ``_sum`` carries the
+    exact sum — the invariants :func:`lint_prometheus` enforces on
+    every emitted snapshot.  Not internally locked:
+    owners (the server) serialize observations under their own lock."""
+
+    __slots__ = ("bounds", "bucket_counts", "sum", "count")
+
+    def __init__(self, bounds: Sequence[float] = DEFAULT_LATENCY_BUCKETS):
+        bs = tuple(sorted(float(b) for b in bounds))
+        if not bs or len(set(bs)) != len(bs):
+            raise ValueError(f"bad histogram bounds {bounds}")
+        self.bounds = bs
+        self.bucket_counts = [0] * (len(bs) + 1)   # last = +Inf overflow
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        self.bucket_counts[bisect.bisect_left(self.bounds, v)] += 1
+        self.sum += v
+        self.count += 1
+
+    def cumulative(self) -> Dict[str, int]:
+        """``{le_str: cumulative_count, ..., "+Inf": count}`` — the
+        deterministic assertion target of the load harness's virtual
+        mode."""
+        out: Dict[str, int] = {}
+        cum = 0
+        for i, b in enumerate(self.bounds):
+            cum += self.bucket_counts[i]
+            out[_le_str(b)] = cum
+        out["+Inf"] = self.count
+        return out
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Bucket-interpolated quantile (the ``histogram_quantile``
+        estimate): linear within the bucket, clamped to the highest
+        finite bound when the rank falls in the +Inf bucket."""
+        if self.count == 0:
+            return None
+        target = q * self.count
+        cum = 0
+        for i, b in enumerate(self.bounds):
+            prev = cum
+            cum += self.bucket_counts[i]
+            if cum >= target:
+                lo = self.bounds[i - 1] if i else 0.0
+                inside = self.bucket_counts[i]
+                frac = (target - prev) / inside if inside else 1.0
+                return lo + (b - lo) * frac
+        return self.bounds[-1]
+
+    def merge(self, other: "Histogram") -> "Histogram":
+        if other.bounds != self.bounds:
+            raise ValueError("histogram bounds mismatch")
+        for i, c in enumerate(other.bucket_counts):
+            self.bucket_counts[i] += c
+        self.sum += other.sum
+        self.count += other.count
+        return self
+
+    def copy(self) -> "Histogram":
+        h = Histogram(self.bounds)
+        h.bucket_counts = list(self.bucket_counts)
+        h.sum, h.count = self.sum, self.count
+        return h
+
+    def to_samples(self, labels: Optional[Dict[str, Any]] = None
+                   ) -> List[Tuple[str, Dict[str, Any], Any]]:
+        """Suffixed samples for :func:`write_prometheus`:
+        ``name_bucket{le=...}`` (cumulative, ``+Inf`` last), ``name_sum``,
+        ``name_count``."""
+        base = dict(labels or {})
+        out: List[Tuple[str, Dict[str, Any], Any]] = []
+        cum = 0
+        for i, b in enumerate(self.bounds):
+            cum += self.bucket_counts[i]
+            out.append(("_bucket", {**base, "le": _le_str(b)}, cum))
+        out.append(("_bucket", {**base, "le": "+Inf"}, self.count))
+        out.append(("_sum", dict(base), round(self.sum, 9)))
+        out.append(("_count", dict(base), self.count))
+        return out
+
+
+def histogram_family(name: str, help_text: str,
+                     items: Iterable[Tuple[Optional[Dict[str, Any]],
+                                           "Histogram"]]):
+    """A ``(name, "histogram", help, samples)`` family for
+    :func:`write_prometheus` from labelled :class:`Histogram`\\ s."""
+    samples: List[Tuple[str, Dict[str, Any], Any]] = []
+    for labels, hist in items:
+        samples.extend(hist.to_samples(labels))
+    return (name, "histogram", help_text, samples)
+
+
+# ---------------------------------------------------------------------------
+# crash flight recorder
+# ---------------------------------------------------------------------------
+
+_FLIGHT_LOCK = threading.Lock()
+_FLIGHT_COUNT = 0
+_FLIGHT_SEQ = itertools.count(1)
+_FLIGHT_SLUG_RE = re.compile(r"[^A-Za-z0-9_-]+")
+
+
+def flight_record(directory: str, reason: str,
+                  extra: Optional[Dict[str, Any]] = None,
+                  max_spans: int = 4096) -> str:
+    """Dump a postmortem snapshot — the span ring buffer, the memory
+    timeline/rollup plus a live probe reading, and caller-supplied state
+    (the server passes queue depth, SLO report and in-flight request
+    correlation ids) — to an atomic ``flightrec_*.json`` in
+    ``directory``.  Called on unhandled exceptions, tenant faults and
+    SIGTERM (see :func:`install_flight_recorder`); works with telemetry
+    disabled (the span list is just empty).  Returns the file path."""
+    global _FLIGHT_COUNT
+    os.makedirs(directory, exist_ok=True)
+    spans = spans_snapshot()[-int(max_spans):]
+    payload = {
+        "reason": str(reason),
+        "unix_time": time.time(),
+        "host_pid": os.getpid(),
+        # one process owns the card (multi-process runs are ROADMAP A14)
+        "process_index": 0,
+        "process_count": 1,
+        "dropped_spans": dropped_count(),
+        "n_spans": len(spans),
+        "memory": {
+            "probe": {"host": host_memory_bytes(),
+                      "device": device_memory_bytes()},
+            "rollup": memory_rollup(spans),
+        },
+        "spans": [_span_to_dict(s) for s in spans],
+        "extra": dict(extra or {}),
+    }
+    slug = _FLIGHT_SLUG_RE.sub("-", str(reason)).strip("-")[:48] \
+        or "unknown"
+    with _FLIGHT_LOCK:
+        seq = next(_FLIGHT_SEQ)
+        _FLIGHT_COUNT += 1
+    path = os.path.join(directory,
+                        f"flightrec_{slug}_{os.getpid()}_{seq}.json")
+    tmp = path + ".tmp%d" % os.getpid()
+    with open(tmp, "w") as f:
+        json.dump(payload, f, sort_keys=True, separators=(",", ":"),
+                  default=str)
+    os.replace(tmp, path)
+    return path
+
+
+def flight_record_count() -> int:
+    return _FLIGHT_COUNT
+
+
+def install_flight_recorder(directory: str,
+                            extra_fn: Optional[Callable[[], Dict]] = None,
+                            sigterm: bool = False) -> Callable[[], None]:
+    """OPT-IN process-level crash hooks: wrap ``sys.excepthook`` (and,
+    when ``sigterm=True``, the SIGTERM handler) so an unhandled crash or
+    a kill leaves a flight-recorder dump before the process dies.  The
+    previous hooks are chained, not replaced; returns an ``uninstall``
+    callable restoring them (tests stay hermetic)."""
+    import signal
+    import sys
+
+    prev_hook = sys.excepthook
+
+    def _hook(exc_type, exc, tb):
+        try:
+            flight_record(directory, "exception", extra={
+                "exc_type": getattr(exc_type, "__name__", str(exc_type)),
+                "exc": str(exc),
+                **((extra_fn() or {}) if extra_fn else {}),
+            })
+        except Exception:
+            pass
+        prev_hook(exc_type, exc, tb)
+
+    sys.excepthook = _hook
+    prev_sig = None
+    if sigterm:
+        def _on_term(signum, frame):
+            try:
+                flight_record(directory, "sigterm",
+                              extra=(extra_fn() or {}) if extra_fn
+                              else {})
+            except Exception:
+                pass
+            signal.signal(signal.SIGTERM, prev_sig or signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        prev_sig = signal.signal(signal.SIGTERM, _on_term)
+
+    def uninstall():
+        sys.excepthook = prev_hook
+        if sigterm:
+            signal.signal(signal.SIGTERM, prev_sig or signal.SIG_DFL)
+
+    return uninstall
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text-format snapshot writer
+# ---------------------------------------------------------------------------
+
+def _prom_escape(v: Any) -> str:
+    return str(v).replace("\\", r"\\").replace('"', r'\"') \
+        .replace("\n", r"\n")
+
+
+def write_prometheus(path: str,
+                     families: Iterable[Tuple[str, str, str,
+                                              Iterable[Union[
+                                                  Tuple[Optional[
+                                                      Dict[str, Any]], Any],
+                                                  Tuple[str, Dict[str, Any],
+                                                        Any]]]]]) -> str:
+    """Write a Prometheus text-format (exposition format 0.0.4) snapshot
+    atomically.  ``families`` is an iterable of
+    ``(name, type, help_text, samples)`` with ``samples`` an iterable of
+    ``(labels_dict_or_None, value)`` or, for histogram/summary families,
+    ``(name_suffix, labels_dict, value)`` (see
+    :meth:`Histogram.to_samples`).  Returns ``path``."""
+    lines: List[str] = []
+    for name, mtype, help_text, samples in families:
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {mtype}")
+        for sample in samples:
+            if len(sample) == 3:
+                suffix, labels, value = sample
+            else:
+                (labels, value), suffix = sample, ""
+            lab = ""
+            if labels:
+                lab = "{" + ",".join(
+                    f'{k}="{_prom_escape(v)}"'
+                    for k, v in sorted(labels.items())) + "}"
+            lines.append(f"{name}{suffix}{lab} {value}")
+    tmp = path + ".tmp%d" % os.getpid()
+    with open(tmp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    os.replace(tmp, path)
+    return path
+
+
+def metrics_families():
+    """Telemetry self-metrics for :func:`write_prometheus` — most
+    importantly the ring's dropped-span count, which was invisible
+    before (a saturated ring silently truncates every rollup derived
+    from it)."""
+    with _REC.lock:
+        n_spans = len(_REC.spans)
+        dropped = _REC.dropped
+    fams = [
+        ("ctt_telemetry_dropped_spans_total", "counter",
+         "Spans evicted from the bounded telemetry ring",
+         [(None, dropped)]),
+        ("ctt_telemetry_ring_spans", "gauge",
+         "Spans currently held in the telemetry ring",
+         [(None, n_spans)]),
+        ("ctt_telemetry_flight_records_total", "counter",
+         "Flight-recorder postmortem dumps written by this process",
+         [(None, _FLIGHT_COUNT)]),
+    ]
+    host = host_memory_bytes()
+    fams.append(
+        ("ctt_memory_host_gb", "gauge",
+         "Host memory (GiB, 1024-based): resident set and high-water",
+         [({"kind": "rss"}, round(host["rss"] / _GIB, 4)),
+          ({"kind": "hwm"}, round(host["hwm"] / _GIB, 4))]))
+    dev = device_memory_bytes()
+    if dev is not None:
+        fams.append(
+            ("ctt_memory_device_gb", "gauge",
+             "Device memory (GiB) from torch.cuda.memory_stats()",
+             [({"kind": "in_use"}, round(dev["in_use"] / _GIB, 4)),
+              ({"kind": "peak"}, round(dev["peak"] / _GIB, 4))]))
+    return fams
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text-format lint (pure-python promtool subset)
+# ---------------------------------------------------------------------------
+
+_PROM_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_PROM_LABEL_KEY_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+_PROM_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})?\s+(\S+)(?:\s+(-?\d+))?$")
+_PROM_TYPES = {"counter", "gauge", "histogram", "summary", "untyped"}
+_HIST_SUFFIXES = ("_bucket", "_sum", "_count")
+
+
+def _parse_prom_labels(blob: str, lineno: int, errors: List[str]
+                       ) -> Optional[Dict[str, str]]:
+    """Parse a ``{k="v",...}`` label blob honoring the three legal
+    escapes (``\\\\``, ``\\"``, ``\\n``); reports malformed syntax."""
+    inner = blob[1:-1]
+    labels: Dict[str, str] = {}
+    i, n = 0, len(inner)
+    while i < n:
+        m = re.match(r'([a-zA-Z_][a-zA-Z0-9_]*)="', inner[i:])
+        if not m:
+            errors.append(f"line {lineno}: malformed label pair at "
+                          f"{inner[i:i + 20]!r}")
+            return None
+        key = m.group(1)
+        i += m.end()
+        chars: List[str] = []
+        closed = False
+        while i < n:
+            c = inner[i]
+            if c == "\\":
+                nxt = inner[i + 1] if i + 1 < n else ""
+                if nxt in ("\\", '"', "n"):
+                    chars.append({"\\": "\\", '"': '"', "n": "\n"}[nxt])
+                    i += 2
+                else:
+                    errors.append(
+                        f"line {lineno}: bad escape \\{nxt} in label "
+                        f"{key}")
+                    i += 2
+            elif c == '"':
+                closed = True
+                i += 1
+                break
+            else:
+                chars.append(c)
+                i += 1
+        if not closed:
+            errors.append(f"line {lineno}: unterminated label value for "
+                          f"{key}")
+            return None
+        if key in labels:
+            errors.append(f"line {lineno}: duplicate label {key}")
+        labels[key] = "".join(chars)
+        if i < n and inner[i] == ",":
+            i += 1
+    return labels
+
+
+def lint_prometheus(text: str) -> List[str]:
+    """Promtool-style lint of an exposition-format snapshot.  Returns a
+    list of error strings (empty = clean).  Checks: metric/label name
+    syntax, label-value escaping, HELP/TYPE present before samples,
+    duplicate series, float-parseable values, and the histogram
+    invariants — cumulative bucket monotonicity, the mandatory
+    ``le="+Inf"`` bucket equal to ``_count``, and ``_sum``/``_count``
+    presence."""
+    errors: List[str] = []
+    typed: Dict[str, str] = {}
+    seen_series: set = set()
+    # (family, frozen_labels_minus_le) -> [(le_float, count, lineno)]
+    hist_buckets: Dict[Tuple[str, frozenset], List[Tuple[float, float]]] = {}
+    hist_counts: Dict[Tuple[str, frozenset], float] = {}
+    hist_sums: Dict[Tuple[str, frozenset], float] = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            parts = line.split(" ", 3)
+            if len(parts) < 4 and parts[1] == "TYPE":
+                errors.append(f"line {lineno}: malformed TYPE line")
+                continue
+            name = parts[2]
+            if not _PROM_NAME_RE.match(name):
+                errors.append(f"line {lineno}: bad metric name {name!r}")
+            if parts[1] == "TYPE":
+                mtype = parts[3].strip() if len(parts) > 3 else ""
+                if mtype not in _PROM_TYPES:
+                    errors.append(
+                        f"line {lineno}: unknown TYPE {mtype!r} for "
+                        f"{name}")
+                if name in typed:
+                    errors.append(f"line {lineno}: duplicate TYPE for "
+                                  f"{name}")
+                typed[name] = mtype
+            continue
+        if line.startswith("#"):
+            continue
+        m = _PROM_SAMPLE_RE.match(line)
+        if not m:
+            errors.append(f"line {lineno}: unparseable sample "
+                          f"{line[:60]!r}")
+            continue
+        name, blob, value = m.group(1), m.group(2), m.group(3)
+        labels = (_parse_prom_labels(blob, lineno, errors)
+                  if blob else {})
+        if labels is None:
+            continue
+        for k in labels:
+            if not _PROM_LABEL_KEY_RE.match(k):
+                errors.append(f"line {lineno}: bad label name {k!r}")
+        try:
+            val = float(value)
+        except ValueError:
+            errors.append(f"line {lineno}: non-numeric value {value!r}")
+            continue
+        # resolve the family: histogram samples carry suffixed names
+        family, suffix = name, ""
+        if name not in typed:
+            for suf in _HIST_SUFFIXES:
+                base = name[:-len(suf)] if name.endswith(suf) else None
+                if base and typed.get(base) in ("histogram", "summary"):
+                    family, suffix = base, suf
+                    break
+        if family not in typed:
+            errors.append(f"line {lineno}: sample {name} has no "
+                          f"preceding # TYPE")
+            continue
+        key = (name, frozenset(labels.items()))
+        if key in seen_series:
+            errors.append(f"line {lineno}: duplicate series {name}"
+                          f"{sorted(labels.items())}")
+        seen_series.add(key)
+        if typed.get(family) == "histogram":
+            hkey = (family, frozenset((k, v) for k, v in labels.items()
+                                      if k != "le"))
+            if suffix == "_bucket":
+                if "le" not in labels:
+                    errors.append(f"line {lineno}: histogram bucket "
+                                  f"without le label")
+                    continue
+                le_raw = labels["le"]
+                try:
+                    le = (float("inf") if le_raw == "+Inf"
+                          else float(le_raw))
+                except ValueError:
+                    errors.append(f"line {lineno}: bad le value "
+                                  f"{le_raw!r}")
+                    continue
+                hist_buckets.setdefault(hkey, []).append((le, val))
+            elif suffix == "_count":
+                hist_counts[hkey] = val
+            elif suffix == "_sum":
+                hist_sums[hkey] = val
+            elif family == name:
+                errors.append(f"line {lineno}: bare sample {name} in "
+                              f"histogram family")
+    for hkey, buckets in hist_buckets.items():
+        family, labels = hkey[0], dict(hkey[1])
+        where = f"{family}{sorted(labels.items())}"
+        in_order = sorted(buckets)
+        counts = [c for _, c in in_order]
+        if counts != sorted(counts):
+            errors.append(f"{where}: bucket counts not monotone "
+                          f"non-decreasing in le order: {counts}")
+        if not in_order or in_order[-1][0] != float("inf"):
+            errors.append(f"{where}: missing le=\"+Inf\" bucket")
+        else:
+            inf_count = in_order[-1][1]
+            if hkey not in hist_counts:
+                errors.append(f"{where}: missing _count sample")
+            elif hist_counts[hkey] != inf_count:
+                errors.append(
+                    f"{where}: _count {hist_counts[hkey]} != +Inf "
+                    f"bucket {inf_count}")
+        if hkey not in hist_sums:
+            errors.append(f"{where}: missing _sum sample")
+    for hkey in set(hist_counts) | set(hist_sums):
+        if hkey not in hist_buckets:
+            family, labels = hkey[0], dict(hkey[1])
+            errors.append(f"{family}{sorted(labels.items())}: _sum/"
+                          f"_count without any _bucket samples")
+    return errors

@@ -25,13 +25,19 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def library() -> str:
+    """The solver library's path, built at first use (each call resolves
+    through ``core/build.py``'s counted cache)."""
+    return build_shared("ctt_torch_native", [_SRC], _CMD)
+
+
 def load() -> ctypes.CDLL:
     """Build (at first use) and load the solver library."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(build_shared("ctt_torch_native", [_SRC], _CMD))
+        lib = ctypes.CDLL(library())
         i64 = ctypes.c_int64
         p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         p_f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")

@@ -62,14 +62,19 @@ def nvcc_command() -> list:
             "-Xcompiler", "-fPIC"]
 
 
+def kernel_library() -> str:
+    """The kernel library's path, built with nvcc at first use (each call
+    resolves through ``core/build.py``'s counted cache)."""
+    return build_shared("ctt_torch_minplus", [kernels.source_path("minplus")],
+                        nvcc_command())
+
+
 def _load_kernel() -> ctypes.CDLL:
     """Build ``csrc/minplus.cu`` with nvcc at first use and bind it."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_shared(
-                "ctt_torch_minplus", [kernels.source_path("minplus")],
-                nvcc_command()))
+            lib = ctypes.CDLL(kernel_library())
             fn = lib.ctt_minplus_envelope
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_longlong, ctypes.c_int,

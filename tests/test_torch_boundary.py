@@ -218,6 +218,23 @@ def test_lifted_and_agglomeration_modules_are_held_to_the_rule():
         assert f"cluster_tools_tpu_torch.{name}" in mods, name
 
 
+def test_serving_and_edits_modules_are_held_to_the_rule():
+    """The serving layer (the resident server, its load harness and SLO
+    engine) and the proofreading subsystem are among the modules the two
+    import checks walk, and the package exports no server name (the JAX
+    package's top level exports none either)."""
+    import cluster_tools_tpu_torch as ctp
+
+    mods = set(_port_modules())
+    for name in ("core.server", "core.loadgen", "core.slo", "edits",
+                 "edits.log", "edits.resolver", "edits.incremental",
+                 "edits.patcher", "edits.service", "workflows.paintera"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+    for name in ("ResidentSegmentationServer", "FusedROIPipeline",
+                 "EditPipeline", "EditSession"):
+        assert name not in ctp.__all__, name
+
+
 @pytest.mark.parametrize("which", ["watershed_from_seeds", "agglomerate",
                                    "lifted_multicut", "agglomerative"])
 def test_new_device_tasks_raise_without_a_card(tmp_path, which):
