@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, then runs thirteen phases, each of which must pass:
+sources, then runs fourteen phases, each of which must pass:
 
 1. the build;
 2. the min-plus EDT kernel against its plain PyTorch version (in place
@@ -92,7 +92,28 @@ sources, then runs thirteen phases, each of which must pass:
    ``EditPipeline`` while other tenants' bulk requests queue, each
    edit's incremental result equal to the from-scratch solve, only the
    touched output blocks rewritten, every edit ahead of the queued bulk
-   requests.
+   requests;
+14. filter banks and the workflows that use them: the min-plus kernel
+   against its plain version on the object fit's outer block of a full
+   block with the default ``erode_by`` (``(74, 536, 536)``: each axis in
+   place and the whole EDT, bitwise), its per-slice form and the signed
+   distance transform of the main path's outer block; (a) card against
+   CPU on ``(32, 128, 128)``: every filter at three scales, the min and
+   max box filters, every downsampling sampler, the linear resize, both
+   affinity functions, then the split chain with filter-bank edge
+   features, ``ImageFilterTask``, ``SmoothedGradients``,
+   ``InsertAffinities``, ``UpscaleTask``, ``ScaleToBoundariesTask`` (3-d
+   and per slice), ``DownscalingWorkflow`` and the six post-processing
+   workflows, labels identical and floats within the tests' tolerances;
+   (b) at full block width on phase 12's crop: the split chain with 6
+   filter-bank responses (55 feature columns) under the CREMI gate,
+   ``ImageFilterTask`` with the default features, ``ScaleToBoundariesTask``
+   fitting the 6 largest ground-truth bodies, downsampled, back to the
+   boundaries (adapted Rand no worse than the upsampled input's) and the
+   filling ``SizeFilterWorkflow`` over phase 4's fragments, with the
+   kernel's launches counted; (c) ``CopyVolumeTask`` and
+   ``DownscalingWorkflow`` on phase 4's whole volume, s1 equal to the
+   numpy window mean.
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -2238,6 +2259,633 @@ def edit_lane(root: str, store: str, pipe, crops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: filter banks and the workflows that use them — filter-bank
+# edge features, pixel features, pyramids, the object fit, post-processing
+# ---------------------------------------------------------------------------
+
+#: 14a's card-vs-CPU volume and blocks (phase 11's)
+P14_SHAPE = (32, 128, 128)
+P14_BLOCK = [32, 64, 64]
+#: 14a's filter scales (the pixel features' DEFAULT_FEATURES scales)
+P14_SIGMAS = (0.7, 1.6, 3.5)
+FILTER_NAMES = ("gaussianSmoothing", "gaussianGradientMagnitude",
+                "laplacianOfGaussian")
+#: the split chain's filter bank in 14a and 14b: 6 responses, 55 columns
+FILTER_BANK = {"filters": list(FILTER_NAMES), "sigmas": [1.6, 3.5]}
+#: the tests' tolerances: filter responses on [0, 1] data, the linear
+#: resize (tests/test_torch_filters.py, tests/test_torch_downscaling.py)
+FILTER_RTOL, FILTER_ATOL = 1e-4, 1e-5
+RESIZE_ATOL = 1e-6
+#: the object fit: 14a erodes by 4 (its CPU side's time), 14b by the task
+#: default 12 and fits the FIT_BODIES largest ground-truth bodies
+P14_ERODE = 4
+FIT_ERODE = 12
+FIT_BODIES = 6
+#: the size filters' thresholds (voxels) in 14a and 14b
+P14_SIZE_THRESHOLD = 200
+SIZE_THRESHOLD = 1000
+#: 14c's pyramid of phase 4's volume
+PYRAMID = [[1, 2, 2], [1, 2, 2], [2, 2, 2]]
+#: the two sides of 14a's comparisons: (work directory, device)
+SIDES = (("card", "cuda"), ("cpu", "cpu"))
+#: 14a's affinity offsets (InsertAffinities, compute_affinities)
+P14_OFFSETS = [[-1, 0, 0], [0, -1, 0], [0, 0, -1], [0, -4, 0], [-2, 0, -4]]
+
+
+def check_close(name: str, card: np.ndarray, cpu: np.ndarray,
+                rtol: float, atol: float) -> float:
+    """Card and CPU floats within (rtol, atol); logs the max abs error."""
+    err = float(np.abs(card.astype("float64") - cpu).max()) if card.size \
+        else 0.0
+    ok = card.shape == cpu.shape and np.allclose(card, cpu, rtol=rtol,
+                                                 atol=atol)
+    log(f"{name} card-vs-cpu max_abs_err {err} identical "
+        f"{bool(np.array_equal(card, cpu))} (rtol {rtol}, atol {atol})")
+    if not ok:
+        raise AssertionError(f"{name}: card and CPU disagree")
+    return err
+
+
+def check_same(name: str, card: np.ndarray, cpu: np.ndarray) -> None:
+    same = card.shape == cpu.shape and bool(np.array_equal(card, cpu))
+    log(f"{name} card-vs-cpu identical {same}")
+    if not same:
+        raise AssertionError(f"{name}: card and CPU labels differ")
+
+
+def fit_bodies(gt: np.ndarray, n: int) -> np.ndarray:
+    """The ``n`` largest ground-truth bodies, every other voxel 0."""
+    ids, counts = np.unique(gt, return_counts=True)
+    counts[ids == 0] = 0
+    keep = ids[np.argsort(counts)[::-1][:n]]
+    return np.where(np.isin(gt, keep), gt, 0).astype("uint64")
+
+
+def surface_boundary_mean(labels: np.ndarray, hmap: np.ndarray):
+    """Mean of ``hmap`` over the objects' surface voxels (a nonzero voxel
+    with an axis neighbor of another label) and their count: how well the
+    objects' boundaries lie on the boundary map."""
+    surface = np.zeros(labels.shape, bool)
+    for ax in range(labels.ndim):
+        lo, hi = [slice(None)] * labels.ndim, [slice(None)] * labels.ndim
+        lo[ax], hi[ax] = slice(0, -1), slice(1, None)
+        differ = labels[tuple(lo)] != labels[tuple(hi)]
+        surface[tuple(lo)] |= differ
+        surface[tuple(hi)] |= differ
+    surface &= labels != 0
+    return float(hmap[surface].mean()), int(surface.sum())
+
+
+def filter_ops_card_vs_cpu(data: np.ndarray, gt: np.ndarray):
+    """Phase 14a, the ops: every filter at three scales, the min and max
+    box filters, the signed distance transform, every downsampling
+    sampler, the linear upsampling and both affinity functions, card
+    against CPU."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops.edt import signed_distance_transform
+    from cluster_tools_tpu_torch.ops.filters import apply_filter, rank_pool
+    from cluster_tools_tpu_torch.workflows.affinities import (
+        compute_affinities, embedding_distance_affinities)
+    from cluster_tools_tpu_torch.workflows.downscaling import (downsample,
+                                                               upsample)
+
+    x = data.astype("float32") / 255.0
+    xs = {"cuda": torch.from_numpy(x).to("cuda"), "cpu": torch.from_numpy(x)}
+    for fn in FILTER_NAMES:
+        for s in P14_SIGMAS:
+            out = {d: apply_filter(t, fn, s).cpu().numpy()
+                   for d, t in xs.items()}
+            check_close(f"{fn} sigma {s}", out["cuda"], out["cpu"],
+                        FILTER_RTOL, FILTER_ATOL)
+    for mode in ("min", "max"):
+        for size in (3, (1, 5, 5)):
+            check_same(f"rank_pool {mode} {size}",
+                       *(rank_pool(xs[d], size, mode).cpu().numpy()
+                         for d in ("cuda", "cpu")))
+    mask = data < 64
+    check_same("signed_distance_transform", *(
+        signed_distance_transform(torch.from_numpy(mask).to(d)).cpu()
+        .numpy() for d in ("cuda", "cpu")))
+    for sampler in ("mean", "max", "min", "nearest", "majority"):
+        for vol, tag in ((data, "uint8"), (gt.astype("uint64"), "labels")):
+            check_same(f"downsample {sampler} {tag}", *(
+                downsample(vol, [1, 2, 2], sampler, device=d)
+                for d in ("cuda", "cpu")))
+    for factor in ([1, 2, 2], [2, 2, 2]):
+        check_close(f"downsample interpolate {factor}", *(
+            downsample(x, factor, "interpolate", device=d)
+            for d in ("cuda", "cpu")), rtol=0.0, atol=RESIZE_ATOL)
+        check_close(f"upsample interpolate {factor}", *(
+            upsample(x[:, :64, :64], factor, "interpolate", device=d)
+            for d in ("cuda", "cpu")), rtol=0.0, atol=RESIZE_ATOL)
+    check_same("compute_affinities", *(compute_affinities(gt, P14_OFFSETS,
+                                                          d)
+                                       for d in ("cuda", "cpu")))
+    emb = np.stack([x, 1.0 - x, x * x])
+    for norm in ("l2", "cosine"):
+        check_close(f"embedding_distance_affinities {norm}", *(
+            embedding_distance_affinities(emb, P14_OFFSETS, norm, d)
+            for d in ("cuda", "cpu")), rtol=1e-5, atol=1e-6)
+
+
+def run_filter_chain(workdir: str, store: str, block, device: str,
+                     tag: str = ""):
+    """The split chain, ``WatershedWorkflow`` ->
+    ``MulticutSegmentationWorkflow(fused=False)``, with the filter-bank
+    edge features of FILTER_BANK on ``device``, writing ``ws_fb<tag>`` /
+    ``seg_fb<tag>``; returns (wall s, fragments, segmentation, features,
+    problem path, assignments, status JSONs by task)."""
+    import cluster_tools_tpu_torch as ctp
+
+    cfg = config_dir(os.path.join(workdir, f"fb{tag}"), block, device,
+                     {"block_edge_features": FILTER_BANK})
+    tmp = os.path.join(workdir, f"tmp_fb{tag}")
+    common = dict(tmp_folder=tmp, config_dir=cfg,
+                  max_jobs=os.cpu_count() or 1, target="gpu")
+    problem = os.path.join(workdir, f"problem_fb{tag}.n5")
+    ws = ctp.WatershedWorkflow(input_path=store, input_key="bmap",
+                               output_path=store, output_key=f"ws_fb{tag}",
+                               **common)
+    wf = ctp.MulticutSegmentationWorkflow(
+        input_path=store, input_key="bmap", ws_path=store,
+        ws_key=f"ws_fb{tag}", problem_path=problem, output_path=store,
+        output_key=f"seg_fb{tag}", n_scales=1, fused=False, dependency=ws,
+        **common)
+    wall = timed_build(wf, device)
+    return (wall, read_dataset(store, f"ws_fb{tag}"),
+            read_dataset(store, f"seg_fb{tag}"),
+            read_dataset(problem, "features"), problem,
+            np.load(os.path.join(tmp, "multicut_assignments.npy")),
+            read_status(tmp))
+
+
+def filter_tasks(workdir: str, store: str, block, device: str):
+    """``ImageFilterTask`` (DEFAULT_FEATURES), ``SmoothedGradients``,
+    ``InsertAffinities``, ``UpscaleTask`` (linear) and
+    ``ScaleToBoundariesTask`` (3-d and per slice, erode_by P14_ERODE)
+    over the inputs of ``store`` on ``device``; returns {name: (wall s,
+    output, minplus launches)}."""
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch import kernels
+
+    cfg = config_dir(os.path.join(workdir, "tasks"), block, device,
+                     {"upscaling": {"sampler": "interpolate"}})
+    common = dict(config_dir=cfg, max_jobs=os.cpu_count() or 1,
+                  target="gpu")
+    def tmp(name):
+        return dict(tmp_folder=os.path.join(workdir, f"tmp_{name}"))
+
+    tasks = {
+        "image_filter": (ctp.ImageFilterTask(
+            input_path=store, input_key="raw", output_path=store,
+            output_key="feats", **tmp("image_filter"), **common), "feats"),
+        "smoothed_gradients": (ctp.SmoothedGradients(
+            input_path=store, input_key="raw", output_path=store,
+            output_key="grad", sigma=2.0, **tmp("gradients"), **common),
+            "grad"),
+        "insert_affinities": (ctp.InsertAffinities(
+            input_path=store, input_key="affs", objects_path=store,
+            objects_key="objs", output_path=store, output_key="affs_ins",
+            offsets=P14_OFFSETS, **tmp("insert"), **common), "affs_ins"),
+        "upscale": (ctp.UpscaleTask(
+            input_path=store, input_key="raw_lr", output_path=store,
+            output_key="raw_up", scale_factor=[1, 2, 2],
+            **tmp("upscale"), **common), "raw_up"),
+    }
+    for mode in ("3d", "2d"):
+        cfg_m = config_dir(os.path.join(workdir, f"fit_{mode}"), block,
+                           device, {"scale_to_boundaries": {
+                               "erode_by": P14_ERODE,
+                               "erode_3d": mode == "3d"}})
+        tasks[f"scale_to_boundaries_{mode}"] = (ctp.ScaleToBoundariesTask(
+            input_path=store, input_key="objs_lr", output_path=store,
+            output_key=f"fitted_{mode}", boundaries_path=store,
+            boundaries_key="bmap", tmp_folder=os.path.join(
+                workdir, f"tmp_fit_{mode}"), config_dir=cfg_m,
+            max_jobs=common["max_jobs"], target="gpu"), f"fitted_{mode}")
+    out = {}
+    for name, (task, key) in tasks.items():
+        kernels.reset_counts()
+        wall = timed_build(task, device)
+        out[name] = (wall, read_dataset(store, key),
+                     kernels.counts()["minplus"])
+    return out
+
+
+def run_postprocess(workdir: str, store: str, problem: str, block,
+                    device: str, size_threshold: int):
+    """The six post-processing workflows over a split chain's outputs in
+    ``store`` (``frags``, ``seg``, ``assignments``, ``classes``, ``bmap``)
+    and ``problem`` (``s0/graph``, ``features``) on ``device``; returns
+    {name: (wall s, output labels)}."""
+    import cluster_tools_tpu_torch as ctp
+
+    cfg = config_dir(os.path.join(workdir, "pp"), block, device)
+    common = dict(config_dir=cfg, max_jobs=os.cpu_count() or 1,
+                  target="gpu")
+
+    def tmp(name):
+        return dict(tmp_folder=os.path.join(workdir, f"tmp_pp_{name}"))
+
+    graph = dict(graph_key="s0/graph")
+    wfs = {
+        "size_filter": (ctp.SizeFilterWorkflow(
+            input_path=store, input_key="frags", output_path=store,
+            output_key="pp_size", size_threshold=size_threshold,
+            hmap_path=store, hmap_key="bmap", **tmp("size"), **common),
+            store, "pp_size"),
+        "filter_labels": (ctp.FilterLabelsWorkflow(
+            input_path=store, input_key="seg", label_path=store,
+            label_key="classes", node_label_path=store,
+            node_label_key="pp_node_labels", output_path=store,
+            output_key="pp_labels", filter_labels=[1, 2],
+            **tmp("labels"), **common), store, "pp_labels"),
+        "filter_by_threshold": (ctp.FilterByThresholdWorkflow(
+            input_path=store, input_key="bmap", seg_in_path=store,
+            seg_in_key="seg", seg_out_path=store, seg_out_key="pp_thresh",
+            threshold=0.3, **tmp("thresh"), **common), store, "pp_thresh"),
+        "graph_cc": (ctp.ConnectedComponentsWorkflow(
+            problem_path=problem, assignment_path=store,
+            assignment_key="assignments", output_path=store,
+            assignment_out_key="pp_cc_assignments", path=store,
+            fragments_key="frags", output_key="pp_cc", **graph,
+            **tmp("cc"), **common), store, "pp_cc"),
+        "orphans": (ctp.FilterOrphansWorkflow(
+            graph_path=problem, path=store, segmentation_key="frags",
+            assignment_key="assignments", output_path=store,
+            assignment_out_key="pp_orphan_assignments",
+            output_key="pp_orphans", **graph, **tmp("orphans"), **common),
+            store, "pp_orphans"),
+        "size_graph_watershed": (ctp.SizeFilterAndGraphWatershedWorkflow(
+            problem_path=problem, features_key="features", path=store,
+            segmentation_key="seg", assignment_key="assignments",
+            size_threshold=size_threshold, output_path=store,
+            assignment_out_key="pp_gws_assignments", fragments_key="frags",
+            output_key="pp_gws", **graph, **tmp("gws"), **common),
+            store, "pp_gws"),
+    }
+    out = {}
+    for name, (wf, path, key) in wfs.items():
+        out[name] = (timed_build(wf, device), read_dataset(path, key))
+    return out
+
+
+def write_postprocess_inputs(store: str, data, frags, seg, assignments,
+                             gt, block) -> None:
+    """A store of the post-processing inputs: the boundary map, the
+    fragments and segmentation (with maxId), the assignment table and the
+    ground truth folded into N_CLASSES classes."""
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    write_dataset(store, "bmap", data, block)
+    write_dataset(store, "frags", frags, block)
+    write_dataset(store, "seg", seg, block)
+    write_dataset(store, "classes", (gt.astype("uint64") % N_CLASSES) + 1,
+                  block)
+    with file_reader(store) as f:
+        f["frags"].attrs["maxId"] = int(frags.max())
+        f["seg"].attrs["maxId"] = int(seg.max())
+        f.require_dataset("assignments", data=assignments.astype("uint64"),
+                          chunks=(len(assignments),))
+
+
+def filter_workflows_card_vs_cpu(root: str, data: np.ndarray,
+                                 gt: np.ndarray):
+    """Phase 14a, the workflows on P14_SHAPE, card against CPU: the split
+    chain with filter-bank edge features (identical fragments and
+    segmentation, features within the tolerance), the pixel features,
+    smoothed gradients, inserted affinities, the linear upscaling, the
+    object fit in 3-d and per slice (identical labels, minplus launches 3
+    and 2 per block with objects), ``DownscalingWorkflow`` and the six
+    post-processing workflows over the card's chain; returns the card's
+    minplus launches."""
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+    from cluster_tools_tpu_torch.core.volume_views import InterpolatedVolume
+    from cluster_tools_tpu_torch.workflows.affinities import \
+        compute_affinities
+    from cluster_tools_tpu_torch.workflows.downscaling import (downsample,
+                                                               upsample)
+    from cluster_tools_tpu_torch import kernels
+
+    raw = data.astype("float32") / 255.0
+    bodies = fit_bodies(gt, 4)
+    objs_lr = downsample(bodies, [1, 2, 2], "nearest", device="cpu")
+    affs = np.random.RandomState(0).rand(5, *data.shape).astype("float32")
+    objs = np.where(np.isin(gt, np.unique(bodies)[1:3]), gt, 0)
+    chain, tasks, pyr = {}, {}, {}
+    launches = 0
+    for side, device in SIDES:
+        wd = os.path.join(root, "p14a", side)
+        store = os.path.join(wd, "data.n5")
+        write_volume(store, data, P14_BLOCK)
+        for key, vol in (("raw", raw), ("affs", affs), ("objs", objs),
+                         ("objs_lr", objs_lr),
+                         ("raw_lr", raw[:, ::2, ::2].copy())):
+            write_dataset(store, key, vol, ([vol.shape[0]] if vol.ndim == 4
+                                            else []) + P14_BLOCK)
+        kernels.reset_counts()
+        chain[side] = run_filter_chain(wd, store, P14_BLOCK, device)
+        if side == "card":
+            launches += kernels.counts()["minplus"]
+        tasks[side] = filter_tasks(wd, store, P14_BLOCK, device)
+        if side == "card":
+            launches += sum(v[2] for v in tasks[side].values())
+        import cluster_tools_tpu_torch as ctp
+
+        cfg = config_dir(os.path.join(wd, "pyr"), P14_BLOCK, device)
+        write_dataset(store, "pyr/s0", data, P14_BLOCK)
+        timed_build(ctp.DownscalingWorkflow(
+            input_path=store, input_key="pyr/s0",
+            scale_factors=[[1, 2, 2], [2, 2, 2]], output_key_prefix="pyr",
+            tmp_folder=os.path.join(wd, "tmp_pyr"), config_dir=cfg,
+            max_jobs=os.cpu_count() or 1), device)
+        pyr[side] = [read_dataset(store, f"pyr/s{i}") for i in (1, 2)]
+    n_resp = len(FILTER_BANK["filters"]) * len(FILTER_BANK["sigmas"])
+    card, cpu = chain["card"], chain["cpu"]
+    log(f"p14a filter-chain wall_s card {card[0]} cpu {cpu[0]} "
+        f"feature_columns {card[3].shape[1]} edges {card[3].shape[0]}")
+    if card[3].shape[1] != 9 * n_resp + 1:
+        raise AssertionError("filter-bank features: wrong column count")
+    check_same("filter-chain fragments", card[1], cpu[1])
+    check_close("filter-chain features", card[3], cpu[3], FILTER_RTOL,
+                FILTER_ATOL)
+    check_same("filter-chain segmentation", card[2], cpu[2])
+    for name in tasks["card"]:
+        (wc, c, lc), (wh, h, _) = tasks["card"][name], tasks["cpu"][name]
+        log(f"p14a {name} wall_s card {wc} cpu {wh} minplus launches {lc}")
+        if c.dtype.kind == "f":
+            check_close(name, c, h, FILTER_RTOL,
+                        RESIZE_ATOL if name == "upscale" else FILTER_ATOL)
+        else:
+            check_same(name, c, h)
+    # the oracles: the inserted affinities are the prediction's or more,
+    # and 1 between two voxels of one object; the fit keeps the objects'
+    # ids
+    ins = tasks["card"]["insert_affinities"][1]
+    inside = compute_affinities(objs, P14_OFFSETS, device="cpu") == 1
+    if not (ins >= affs).all() or not (ins[inside] == 1).all():
+        raise AssertionError("insert_affinities: wrong affinities")
+    for mode, per_block in (("3d", 3), ("2d", 2)):
+        fitted = tasks["card"][f"scale_to_boundaries_{mode}"][1]
+        if not set(np.unique(fitted).tolist()) <= set(
+                np.unique(bodies).tolist()):
+            raise AssertionError(f"fit {mode}: ids not the objects'")
+        blocking = Blocking(list(data.shape), P14_BLOCK)
+        halo = [P14_ERODE] * 3 if mode == "3d" else [0, P14_ERODE,
+                                                     P14_ERODE]
+        view = InterpolatedVolume(objs_lr, data.shape)
+        with_objs = sum(bool(view[blocking.get_block_with_halo(
+            b, halo).outer.bb].any()) for b in range(blocking.n_blocks))
+        got = tasks["card"][f"scale_to_boundaries_{mode}"][2]
+        log(f"p14a fit {mode}: {with_objs} blocks with objects, minplus "
+            f"launches {got}")
+        if got != per_block * with_objs:
+            raise AssertionError(f"fit {mode}: {got} min-plus launches for "
+                                 f"{with_objs} blocks with objects")
+    up = upsample(raw[:, ::2, ::2].copy(), [1, 2, 2], "interpolate",
+                  device="cpu")
+    check_close("upscale vs whole-volume resize",
+                tasks["card"]["upscale"][1], up, 0.0, 1e-5)
+    for i in range(2):
+        check_same(f"pyramid s{i + 1}", pyr["card"][i], pyr["cpu"][i])
+    # the post-processing workflows over the card's chain, card vs CPU
+    _, frags, seg, _, problem, assignments, _ = card
+    pp = {}
+    for side, device in SIDES:
+        wd = os.path.join(root, "p14a", f"pp_{side}")
+        store = os.path.join(wd, "data.n5")
+        write_postprocess_inputs(store, data, frags, seg, assignments, gt,
+                                 P14_BLOCK)
+        kernels.reset_counts()
+        pp[side] = run_postprocess(wd, store, problem, P14_BLOCK, device,
+                                   P14_SIZE_THRESHOLD)
+        if side == "card" and kernels.counts()["minplus"]:
+            raise AssertionError("post-processing launched the min-plus "
+                                 "kernel")
+    for name in pp["card"]:
+        log(f"p14a {name} wall_s card {pp['card'][name][0]} cpu "
+            f"{pp['cpu'][name][0]} n_labels "
+            f"{len(np.unique(pp['card'][name][1]))}")
+        check_same(name, pp["card"][name][1], pp["cpu"][name][1])
+    if (pp["card"]["size_filter"][1] == 0).any():
+        raise AssertionError("size filter left holes")
+    return launches
+
+
+def fit_kernel_vs_plain(outer_main):
+    """Phase 14, the kernel against its plain version at the new shapes:
+    the object fit's outer block of a full ``[50, 512, 512]`` block with
+    the default erode_by (``(74, 536, 536)``; each axis in place and the
+    whole EDT, bitwise, timed), its per-slice form (``axes=(1, 2)``) and
+    the signed distance transform of the main path's outer block."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops import edt
+
+    outer = [b + 2 * FIT_ERODE for b in BLOCK]
+    timed, max_err, fg = block_vs_plain(outer)
+    max_err = max(max_err, _compare(
+        "fit outer block per-slice axes=(1,2)",
+        edt.distance_transform_edt(fg, axes=(1, 2)),
+        edt.distance_transform_edt_plain(fg, axes=(1, 2))))
+    fg_main = block_mask(outer_main)
+    want = edt.distance_transform_edt_plain(fg_main) - \
+        edt.distance_transform_edt_plain(torch.logical_not(fg_main))
+    max_err = max(max_err, _compare(
+        "signed_distance_transform main outer block",
+        edt.signed_distance_transform(fg_main), want))
+    return timed, max_err
+
+
+def crop_filter_paths(root: str, store: str, block, gt_c: np.ndarray):
+    """Phase 14b at full block width on phase 12's crop: the split chain
+    with filter-bank edge features (CREMI gate, minplus 3 per block plus
+    3 per redo), ``ImageFilterTask`` with DEFAULT_FEATURES (a box across a
+    block face held to the whole-volume features on the CPU), the object
+    fit of the FIT_BODIES largest bodies (their surfaces on the boundary
+    map at least as well as the nearest-upsampled input's, the adapted
+    Rand errors logged; minplus 3 per block with objects) and the filling
+    size filter over phase 4's fragments; returns the launches by path."""
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+    from cluster_tools_tpu_torch.core.volume_views import InterpolatedVolume
+    from cluster_tools_tpu_torch.utils.validation import compute_rand_scores
+    from cluster_tools_tpu_torch.workflows.downscaling import (downsample,
+                                                               upsample)
+    from cluster_tools_tpu_torch.workflows.pixel_classification import (
+        DEFAULT_FEATURES, _filter_halo, compute_feature_stack)
+
+    wd = os.path.dirname(store)
+    nvox = int(np.prod(CROP))
+    blocking = Blocking(list(CROP), list(block))
+    launches = {}
+    # the split chain with filter-bank features
+    kernels.reset_counts()
+    wall, ws, seg, feats, _, _, status = run_filter_chain(wd, store, block,
+                                                          "cuda", tag="_14b")
+    calls = kernels.counts()["minplus"]
+    redo = status.get("watershed", {}).get("stage_counts", {}).get(
+        "device-ws-redo", 0)
+    sc = scores(seg, gt_c)
+    log(f"crop-filter-chain wall_s {wall} voxels_per_s {nvox / wall} "
+        f"feature_columns {feats.shape[1]} edges {feats.shape[0]} "
+        f"minplus launches {calls} ws-redo {redo} quality {json.dumps(sc)}")
+    for task, st in status.items():
+        log(f"crop-filter-chain task {task} wall_s {st.get('wall_time')} "
+            f"stages {json.dumps(st.get('stages', {}))}")
+    if not (np.isfinite(list(sc.values())).all()
+            and sc["cremi"] <= CREMI_GATE and feats.shape[1] == 55
+            and np.isfinite(feats).all()):
+        raise AssertionError(f"crop filter chain out of bounds: {sc}")
+    if calls != 3 * blocking.n_blocks + 3 * redo:
+        raise AssertionError(f"crop filter chain: {calls} min-plus "
+                             "launches")
+    launches["split-filter-bank"] = calls
+    del ws, seg
+    # the pixel features
+    kernels.reset_counts()
+    cfg = config_dir(os.path.join(wd, "feats14"), block, "cuda")
+    wall = timed_build(ctp.ImageFilterTask(
+        input_path=store, input_key="bmap", output_path=store,
+        output_key="feats14", tmp_folder=os.path.join(wd, "tmp_feats14"),
+        config_dir=cfg, max_jobs=os.cpu_count() or 1, target="gpu"), "cuda")
+    nbytes = len(DEFAULT_FEATURES) * nvox * 4
+    log(f"crop-image-filter wall_s {wall} voxels_per_s {nvox / wall} "
+        f"output_bytes {nbytes} minplus launches "
+        f"{kernels.counts()['minplus']}")
+    halo = _filter_halo(DEFAULT_FEATURES)
+    # a box across the blocks' faces in y and x
+    box = (slice(CROP[0] // 5, CROP[0] * 4 // 5),
+           slice(block[1] - 32, block[1] + 32),
+           slice(block[2] - 32, block[2] + 32))
+    obox = tuple(slice(max(s.start - halo, 0), min(s.stop + halo, n))
+                 for s, n in zip(box, CROP))
+    ref = compute_feature_stack(read_dataset(store, "bmap", obox),
+                                DEFAULT_FEATURES, device="cpu")
+    local = tuple(slice(s.start - o.start, s.stop - o.start)
+                  for s, o in zip(box, obox))
+    got = read_dataset(store, "feats14", (slice(None),) + box)
+    check_close("crop-image-filter box across a block face vs CPU", got,
+                ref[(slice(None),) + local], FILTER_RTOL, 1e-3)
+    # the object fit
+    bodies = fit_bodies(gt_c, FIT_BODIES)
+    objs_lr = downsample(bodies, [1, 2, 2], "nearest", device="cpu")
+    write_dataset(store, "objs_lr14", objs_lr, [50, 256, 256])
+    kernels.reset_counts()
+    cfg = config_dir(os.path.join(wd, "fit14"), block, "cuda")
+    wall = timed_build(ctp.ScaleToBoundariesTask(
+        input_path=store, input_key="objs_lr14", output_path=store,
+        output_key="fitted14", boundaries_path=store, boundaries_key="bmap",
+        tmp_folder=os.path.join(wd, "tmp_fit14"), config_dir=cfg,
+        max_jobs=os.cpu_count() or 1, target="gpu"), "cuda")
+    calls = kernels.counts()["minplus"]
+    fitted = read_dataset(store, "fitted14")
+    view = InterpolatedVolume(objs_lr, CROP)
+    with_objs = sum(bool(view[blocking.get_block_with_halo(
+        b, [FIT_ERODE] * 3).outer.bb].any())
+        for b in range(blocking.n_blocks))
+    upsampled = upsample(objs_lr, [1, 2, 2], device="cpu")
+    are_fit = compute_rand_scores(contingency(bodies, fitted))[0]
+    are_in = compute_rand_scores(contingency(bodies, upsampled))[0]
+    bmap = read_dataset(store, "bmap").astype("float32")
+    snap = {name: surface_boundary_mean(lab, bmap) for name, lab in (
+        ("bodies", bodies), ("fitted", fitted), ("upsampled", upsampled))}
+    log(f"crop-fit wall_s {wall} bodies {FIT_BODIES} erode_by {FIT_ERODE} "
+        f"adapted_rand fitted {are_fit} nearest-upsampled {are_in} "
+        f"surface boundary mean (voxels) {json.dumps(snap)} "
+        f"blocks_with_objects {with_objs} minplus launches {calls}")
+    # the fit moves the objects' surfaces onto the boundary map; where a
+    # background cell keeps no seed after the erosion, an object absorbs
+    # it (the JAX package's fit does the same), so the adapted Rand error
+    # against the bodies is logged, not gated
+    if not snap["fitted"][0] >= snap["upsampled"][0]:
+        raise AssertionError("crop-fit: the fit does not move the objects "
+                             "onto the boundaries")
+    if not set(np.unique(fitted).tolist()) <= set(np.unique(bodies).tolist()):
+        raise AssertionError("crop-fit: ids not the bodies'")
+    if calls != 3 * with_objs:
+        raise AssertionError(f"crop-fit: {calls} min-plus launches for "
+                             f"{with_objs} blocks with objects")
+    launches["scale-to-boundaries"] = calls
+    # the filling size filter over phase 4's fragments (``frags``)
+    kernels.reset_counts()
+    cfg = config_dir(os.path.join(wd, "size14"), block, "cuda")
+    tmp = os.path.join(wd, "tmp_size14")
+    wall = timed_build(ctp.SizeFilterWorkflow(
+        input_path=store, input_key="frags", output_path=store,
+        output_key="size14", size_threshold=SIZE_THRESHOLD,
+        hmap_path=store, hmap_key="bmap", relabel=False, tmp_folder=tmp,
+        config_dir=cfg, max_jobs=os.cpu_count() or 1), "cuda")
+    frags = read_dataset(store, "frags")
+    out = read_dataset(store, "size14")
+    discard = np.load(os.path.join(tmp, "size_filter_discard.npy"))
+    holes = int(((out == 0) & (frags != 0)).sum())
+    survived = int(np.isin(out, discard).sum())
+    log(f"crop-size-filter wall_s {wall} threshold {SIZE_THRESHOLD} "
+        f"discarded {len(discard)} of {len(np.unique(frags))} holes {holes} "
+        f"discarded_voxels_left {survived} minplus launches "
+        f"{kernels.counts()['minplus']}")
+    if holes or survived or not len(discard):
+        raise AssertionError("crop-size-filter: holes or discarded ids left")
+    return launches
+
+
+def pyramid_path(root: str):
+    """Phase 14c: ``CopyVolumeTask`` of phase 4's volume into a Paintera
+    group, then ``DownscalingWorkflow`` (PYRAMID, ``mean``, Paintera
+    metadata) on the card; s1 must equal the numpy window mean exactly."""
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    main = os.path.join(root, "main", "data.n5")
+    wd = os.path.join(root, "pyramid")
+    store = os.path.join(wd, "data.n5")
+    cfg = config_dir(wd, BLOCK, "cuda")
+    common = dict(tmp_folder=os.path.join(wd, "tmp"), config_dir=cfg,
+                  max_jobs=os.cpu_count() or 1, target="gpu")
+    kernels.reset_counts()
+    copy = ctp.CopyVolumeTask(input_path=main, input_key="bmap",
+                              output_path=store, output_key="raw/s0",
+                              **common)
+    t0 = time.perf_counter()
+    ctp.build([copy], raise_on_failure=True)
+    copy_s = time.perf_counter() - t0
+    wf = ctp.DownscalingWorkflow(
+        input_path=store, input_key="raw/s0", scale_factors=PYRAMID,
+        output_key_prefix="raw",
+        metadata_dict={"resolution": [40.0, 4.0, 4.0]}, **common)
+    wall = timed_build(wf, "cuda")
+    nvox = int(np.prod(FULL_SHAPE))
+    with file_reader(store, "r") as f:
+        shapes = [list(f[f"raw/s{i}"].shape) for i in range(4)]
+        factors = [f[f"raw/s{i}"].attrs.get("downsamplingFactors")
+                   for i in (1, 2, 3)]
+        multiscale = f["raw"].attrs.get("multiScale")
+    log(f"pyramid copy_s {copy_s} wall_s {wall} input_voxels_per_s "
+        f"{nvox / wall} shapes {shapes} downsamplingFactors {factors} "
+        f"minplus launches {kernels.counts()['minplus']}")
+    data = read_dataset(main, "bmap")
+    want = np.round(data.reshape(FULL_SHAPE[0], FULL_SHAPE[1] // 2, 2,
+                                 FULL_SHAPE[2] // 2, 2).mean(
+        axis=(2, 4))).astype("uint8")
+    s1 = read_dataset(store, "raw/s1")
+    same = bool(np.array_equal(s1, want))
+    log(f"pyramid s1 == numpy window mean: {same}")
+    if not same or factors != [[2, 2, 1], [4, 4, 1], [8, 8, 2]] \
+            or multiscale is not True:
+        raise AssertionError("pyramid: s1 or its metadata is wrong")
+    want_shapes = [list(FULL_SHAPE)]
+    for factor in PYRAMID:
+        want_shapes.append([-(-s // f) for s, f in zip(want_shapes[-1],
+                                                       factor)])
+    if shapes != want_shapes:
+        raise AssertionError(f"pyramid: shapes {shapes}")
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -2333,6 +2981,19 @@ def main() -> int:
         max_err = max(max_err, serve_err)
         serve_launches["13c"] = phase("13c", edit_lane, root, crop_store,
                                       serve_pipe, crops)
+        # phase 14: filter banks and the workflows that use them
+        fit_timed, fit_err = phase("14-kernel", fit_kernel_vs_plain, outer)
+        max_err = max(max_err, fit_err)
+        gt14, bnd14 = synthetic_instance(P14_SHAPE, seed=5)
+        data14 = as_uint8(bnd14)
+        phase("14a-ops", filter_ops_card_vs_cpu, data14, gt14)
+        filter_launches = {"14a": phase("14a", filter_workflows_card_vs_cpu,
+                                        root, data14, gt14)}
+        filter_launches.update({
+            f"14b-{k}": v for k, v in phase(
+                "14b", crop_filter_paths, root, crop_store, BLOCK,
+                gt_crop).items()})
+        phase("14c", pyramid_path, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2341,13 +3002,14 @@ def main() -> int:
                 "6": split["launches"][k.name],
                 **{f"12a-{m}": n for m, n in variant_launches.items()},
                 **{f"12b-{m}": n for m, n in crop_launches.items()},
-                **serve_launches}
+                **serve_launches, **filter_launches}
     line = {"kernels": [{
         "name": k.name, "route": k.route, "source": k.source,
         "replaces": k.replaces,
         # the main paths' runs: the fused chain, the split chain, the fused
         # chain's hybrid and legacy executions, the watershed's options,
-        # the ROI pipeline card against CPU and on the resident server
+        # the ROI pipeline card against CPU and on the resident server, the
+        # filter-bank chain and the object fit
         "launches": sum(by_phase.values()),
         "launches_by_phase": by_phase,
         "max_abs_err": max_err,
@@ -2356,6 +3018,11 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in timed),
         "bound_ms": sum(r["bound_ms"] for r in timed),
         "bound_by": "bytes", "library_ms": None}]}
+    log("kernel-timed fit outer block " + json.dumps({
+        "shape": fit_timed[0]["shape"],
+        "ms": sum(r["ms"] for r in fit_timed),
+        "plain_ms": sum(r["plain_ms"] for r in fit_timed),
+        "bound_ms": sum(r["bound_ms"] for r in fit_timed)}))
     log(f"script elapsed_s {time.perf_counter() - started}")
     log(info)
     log(json.dumps(line))

@@ -12,7 +12,13 @@ problem-based stitching (``StitchingWorkflow``,
 labels and evaluation (``NodeLabelWorkflow``, ``EvaluationWorkflow``);
 the lifted multicut and agglomerative clustering segmentations
 (``LiftedMulticutSegmentationWorkflow``,
-``AgglomerativeClusteringWorkflow``).  Plain PyTorch for the device code, a
+``AgglomerativeClusteringWorkflow``); filter-bank edge and pixel features
+(``ImageFilterTask``, ``PixelClassificationWorkflow``), derived maps
+(``InsertAffinities``, ``SmoothedGradients``), multiscale pyramids and
+object fitting (``DownscalingWorkflow``, ``PainteraToBdvWorkflow``,
+``UpscaleTask``, ``ScaleToBoundariesTask``), region features and the
+post-processing workflows (size filters, graph watershed, orphans,
+graph connected components).  Plain PyTorch for the device code, a
 hand-written CUDA kernel where the JAX package had a Pallas kernel
 (``csrc/``), and the same task configs, container formats and outputs.
 Device tasks run on the global config's ``"device"`` (default

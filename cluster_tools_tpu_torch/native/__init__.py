@@ -71,6 +71,8 @@ def load() -> ctypes.CDLL:
         lib.seeded_watershed_u8.restype = None
         lib.size_filter_u8.argtypes = [p_u8, i64, i64, i64, p_i64, i64]
         lib.size_filter_u8.restype = None
+        lib.graph_watershed.argtypes = [i64, i64, p_i64, p_f64, p_u64]
+        lib.graph_watershed.restype = None
         _lib = lib
         return _lib
 
@@ -256,6 +258,31 @@ def agglomerative_clustering(n_nodes: int, uv_ids: np.ndarray,
     load().agglomerate_edge_weighted(n_nodes, len(uv), uv, w, es, ns,
                                      float(threshold),
                                      float(size_regularizer), out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# graph watershed
+# ---------------------------------------------------------------------------
+
+def graph_watershed(n_nodes: int, uv_ids: np.ndarray, edge_weights: np.ndarray,
+                    seeds: np.ndarray, grow_smallest_first: bool = True
+                    ) -> np.ndarray:
+    """Seeded watershed on a graph (nifty edgeWeightedWatershedsSegmentation
+    equivalent): the seed labels grow along the largest edge weights first;
+    ``grow_smallest_first=True`` negates the weights, flooding across the
+    lowest boundary evidence first (the reference's convention with
+    probability weights, postprocess/graph_watershed_assignments.py:172)."""
+    uv = _as_uv(uv_ids)
+    w = np.ascontiguousarray(edge_weights, dtype=np.float64)
+    if len(w) != len(uv):
+        raise ValueError("one weight per edge needed")
+    if len(seeds) != n_nodes:
+        raise ValueError("one seed entry per node needed")
+    if grow_smallest_first:
+        w = -w
+    out = np.ascontiguousarray(seeds, dtype=np.uint64).copy()
+    load().graph_watershed(n_nodes, len(uv), uv, w, out)
     return out
 
 

@@ -220,3 +220,14 @@ def distance_transform_edt(mask: torch.Tensor,
         x = minplus_axis_cuda(x, ax, float(sampling[ax]),
                               sqrt=i == len(axes) - 1)
     return x
+
+
+def signed_distance_transform(mask: torch.Tensor,
+                              sampling: Optional[Sequence[float]] = None
+                              ) -> torch.Tensor:
+    """Positive inside the mask, negative outside: two EDTs (on a CUDA
+    tensor two kernel launches per axis)."""
+    mask = mask.to(torch.bool)
+    inner = distance_transform_edt(mask, sampling)
+    outer = distance_transform_edt(torch.logical_not(mask), sampling)
+    return inner - outer

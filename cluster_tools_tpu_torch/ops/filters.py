@@ -1,9 +1,9 @@
 """Separable image filters on the card.
 
 Port of cluster_tools_tpu/ops/filters.py (the reference's filter surface:
-fastfilters/vigra ``gaussianSmoothing`` and ``localMaxima3D``).  Only the
-filters the fused chain runs are ported: :func:`gaussian` and
-:func:`local_maxima`.
+fastfilters/vigra ``gaussianSmoothing``, ``gaussianGradientMagnitude``,
+``laplacianOfGaussian`` and ``localMaxima3D``; the by-name dispatch
+:func:`apply_filter` of utils/volume_utils.py:95).
 
 The Gaussian is written as shifted multiply-adds over a symmetric-padded
 copy (numpy ``"symmetric"`` mode: the edge sample is repeated), one axis at
@@ -23,14 +23,21 @@ import torch
 
 def _gaussian_kernel(sigma: float, order: int = 0,
                      truncate: float = 4.0) -> np.ndarray:
-    """1-d Gaussian taps, matching scipy's normalization (float32)."""
-    if order != 0:
-        raise ValueError("only order-0 Gaussian taps are ported")
+    """1-d Gaussian (or derivative-of-Gaussian) taps, matching scipy's
+    normalization (float32)."""
     radius = max(int(truncate * sigma + 0.5), 1)
     x = np.arange(-radius, radius + 1, dtype="float64")
     g = np.exp(-0.5 * (x / sigma) ** 2)
     g /= g.sum()
-    return g.astype("float32")
+    if order == 0:
+        k = g
+    elif order == 1:
+        k = -x / sigma ** 2 * g
+    elif order == 2:
+        k = (x ** 2 / sigma ** 4 - 1.0 / sigma ** 2) * g
+    else:
+        raise ValueError(f"derivative order {order} not supported")
+    return k.astype("float32")
 
 
 def _symmetric_index(n: int, r: int, device) -> torch.Tensor:
@@ -65,11 +72,49 @@ def gaussian(x: torch.Tensor, sigma: Union[float, Tuple[float, ...]],
     return out
 
 
-def rank_pool_max(x: torch.Tensor,
-                  size: Union[int, Sequence[int]]) -> torch.Tensor:
-    """Same-shape max filter over a box window, out-of-volume samples
-    reading -inf (the JAX package's ``rank_pool(mode="max")``).  The box
-    maximum is separable, so one pass per axis is exact."""
+def gaussian_gradient_magnitude(x: torch.Tensor,
+                                sigma: float) -> torch.Tensor:
+    """|∇(G_sigma * x)| (reference: vigra gaussianGradientMagnitude): for
+    each axis, the first-derivative taps along it and the smoothing taps
+    along the others."""
+    x = x.to(torch.float32)
+    acc = torch.zeros_like(x)
+    for ax in range(x.dim()):
+        d = x
+        for ax2 in range(x.dim()):
+            d = _conv1d_along(d, _gaussian_kernel(sigma, 1 if ax2 == ax
+                                                  else 0), ax2)
+        acc = acc + d * d
+    return torch.sqrt(acc)
+
+
+def laplacian_of_gaussian(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """ΔG_sigma * x (reference: vigra laplacianOfGaussian): for each axis,
+    the second-derivative taps along it and the smoothing taps along the
+    others, summed."""
+    x = x.to(torch.float32)
+    acc = torch.zeros_like(x)
+    for ax in range(x.dim()):
+        d = x
+        for ax2 in range(x.dim()):
+            d = _conv1d_along(d, _gaussian_kernel(sigma, 2 if ax2 == ax
+                                                  else 0), ax2)
+        acc = acc + d
+    return acc
+
+
+def rank_pool(x: torch.Tensor, size: Union[int, Sequence[int]],
+              mode: str = "max") -> torch.Tensor:
+    """Same-shape max or min filter over a box window, out-of-volume
+    samples reading -inf (max) or +inf (min) (the JAX package's
+    ``rank_pool``; scipy maximum_filter / minimum_filter).  The box
+    extremum is separable, so one pass per axis is exact."""
+    if mode == "max":
+        fill, op = -float("inf"), torch.maximum
+    elif mode == "min":
+        fill, op = float("inf"), torch.minimum
+    else:
+        raise ValueError(mode)
     sizes = (size,) * x.dim() if np.isscalar(size) else tuple(size)
     out = x.to(torch.float32)
     for ax, w in enumerate(int(s) for s in sizes):
@@ -79,13 +124,13 @@ def rank_pool_max(x: torch.Tensor,
         n = out.shape[ax]
         pad_shape = list(out.shape)
         pad_lo = out.new_full(pad_shape[:ax] + [lo] + pad_shape[ax + 1:],
-                              -float("inf"))
+                              fill)
         pad_hi = out.new_full(pad_shape[:ax] + [hi] + pad_shape[ax + 1:],
-                              -float("inf"))
+                              fill)
         xp = torch.cat([pad_lo, out, pad_hi], dim=ax)
         m = xp.narrow(ax, 0, n)
         for j in range(1, w):
-            m = torch.maximum(m, xp.narrow(ax, j, n))
+            m = op(m, xp.narrow(ax, j, n))
         out = m
     return out
 
@@ -93,4 +138,25 @@ def rank_pool_max(x: torch.Tensor,
 def local_maxima(x: torch.Tensor, radius: int = 1) -> torch.Tensor:
     """Boolean mask of local maxima (plateaus included) within a cube window
     (reference: vigra localMaxima3D, watershed/watershed.py:187)."""
-    return x >= rank_pool_max(x, 2 * radius + 1)
+    return x >= rank_pool(x, 2 * radius + 1, "max")
+
+
+FILTERS = {
+    "gaussianSmoothing": gaussian,
+    "gaussianGradientMagnitude": gaussian_gradient_magnitude,
+    "laplacianOfGaussian": laplacian_of_gaussian,
+}
+
+
+def apply_filter(x: torch.Tensor, filter_name: str, sigma) -> torch.Tensor:
+    """By-name dispatch (reference: utils/volume_utils.py:95 apply_filter).
+    A per-axis ``sigma`` stays per axis for the Gaussian and is averaged to
+    one value for the derivative filters."""
+    if filter_name not in FILTERS:
+        raise ValueError(f"unknown filter {filter_name}; have "
+                         f"{sorted(FILTERS)}")
+    if filter_name != "gaussianSmoothing" and not np.isscalar(sigma):
+        sigma = float(np.mean(sigma))
+    if filter_name == "gaussianSmoothing" and not np.isscalar(sigma):
+        sigma = tuple(float(s) for s in sigma)
+    return FILTERS[filter_name](x, sigma)

@@ -195,6 +195,22 @@ def boundary_pair_values(labels: torch.Tensor, bmap: torch.Tensor,
             torch.cat([ok, ok]))
 
 
+def boundary_values(bmap: torch.Tensor) -> torch.Tensor:
+    """The samples of :func:`boundary_pair_values` alone, in its layout:
+    the pairs depend on the labels only, so several maps over one label
+    block share one pair extraction."""
+    ndim = bmap.dim()
+    va, vb = [], []
+    for axis in range(ndim):
+        size = bmap.shape[axis] - 1
+        if size <= 0:
+            continue
+        lo_sl, hi_sl = _axis_slices(ndim, axis, size)
+        va.append(bmap[lo_sl].reshape(-1))
+        vb.append(bmap[hi_sl].reshape(-1))
+    return torch.cat(va + vb)
+
+
 def compact_valid(ok: torch.Tensor, arrays: Sequence[torch.Tensor],
                   cap: int):
     """Compact the valid samples of several same-layout arrays into ``cap``

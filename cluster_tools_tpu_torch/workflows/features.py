@@ -43,14 +43,19 @@ class BlockEdgeFeatures(BlockTask):
     (3d input) sample both face voxels per edge; affinity maps (4d input,
     ``offsets``) sample the offset channel at the anchor.  Integer maps
     are probabilities scaled by the dtype's maximum.  ``impl: "host"``
-    runs the numpy analog for boundary maps.  The filter-bank features
-    (``filters``/``sigmas``) are not ported yet (ROADMAP A13)."""
+    runs the numpy analog for boundary maps.  With ``filters`` and
+    ``sigmas`` (boundary maps only) each (filter, sigma) response of the
+    map contributes a 9-column stat group; the count column is shared and
+    written once at the end (reference: block_edge_features.py:165-230
+    ``_accumulate_block``)."""
 
     task_name = "block_edge_features"
 
     @staticmethod
     def default_task_config():
         conf = BlockTask.default_task_config()
+        # filters + sigmas: optional filter-bank features, 9 * n_responses
+        # + 1 columns
         conf.update({"e_max": 65536, "filters": None, "sigmas": None})
         return conf
 
@@ -68,10 +73,6 @@ class BlockEdgeFeatures(BlockTask):
         self.offsets = offsets
         super().__init__(**kw)
         self.device = task_device(self.global_config)
-        if self.task_config.get("filters") or self.task_config.get("sigmas"):
-            raise NotImplementedError(
-                "filter-bank edge features (filters/sigmas) are not ported "
-                "yet (ROADMAP A13)")
 
     def run_impl(self):
         with file_reader(self.labels_path, "r") as f:
@@ -94,19 +95,28 @@ class BlockEdgeFeatures(BlockTask):
         import torch
 
         from ..core.device import resolve_device
+        from ..ops.filters import apply_filter
         from ..ops.rag import (N_FEATURES, affinity_pair_values,
-                               boundary_pair_values, densify_labels,
+                               boundary_pair_values, boundary_values,
+                               densify_labels,
                                device_edge_stats_finalize,
                                device_edge_stats_submit,
+                               device_edge_stats_submit_multi,
                                host_boundary_edge_features)
 
         cfg = job_config["config"]
         blocking = Blocking(cfg["shape"], cfg["block_shape"])
         offsets = cfg.get("offsets")
         host_impl = cfg.get("impl") == "host"
-        if host_impl and offsets is not None:
+        responses = [(fn, s) for fn in (cfg.get("filters") or [])
+                     for s in (cfg.get("sigmas") or [])]
+        if responses and offsets is not None:
+            raise ValueError("filter-bank features are defined for boundary "
+                             "maps only (reference: _accumulate_block)")
+        if host_impl and (responses or offsets is not None):
             raise ValueError("impl='host' supports plain boundary features "
                              "only")
+        n_feats = 9 * len(responses) + 1 if responses else N_FEATURES
         device = None if host_impl else resolve_device(cfg["device"])
         ds_in = file_reader(cfg["input_path"], "r")[cfg["input_key"]]
         ds_lab = file_reader(cfg["labels_path"], "r")[cfg["labels_key"]]
@@ -147,17 +157,28 @@ class BlockEdgeFeatures(BlockTask):
             if len(data["edges"]) == 0 and offsets is None:
                 # empty sub-graph: no read needed (affinity mode still
                 # proceeds — the block may own seam anchors)
-                return block_id, None, None, None, None, data
+                return block_id, None, None, None, None, None, None, data
+            obegin = begin
             with stage("store-read"):
                 labels = np.asarray(ds_lab[bb])
-                if offsets is None:
+                if responses:
+                    # the support halo covers the whole kernel radius
+                    # (truncate 4.0), so blockwise responses equal the
+                    # global ones
+                    halo_v = int(4.0 * max(cfg["sigmas"]) + 0.5) + 1
+                    obegin = [max(b - halo_v, 0) for b in begin]
+                    oend = [min(e + halo_v, s)
+                            for e, s in zip(end, cfg["shape"])]
+                    raw = np.asarray(ds_in[tuple(
+                        slice(b, e) for b, e in zip(obegin, oend))])
+                elif offsets is None:
                     raw = np.asarray(ds_in[bb])
                 else:
                     raw = np.asarray(ds_in[(slice(0, len(offsets)),) + bb])
-            return block_id, block, begin, labels, raw, data
+            return block_id, block, begin, end, obegin, labels, raw, data
 
         def submit(entry):
-            block_id, block, begin, labels, raw, data = entry
+            block_id, block, begin, end, obegin, labels, raw, data = entry
             if block is None:
                 return block_id, None, None, None
             if host_impl:
@@ -171,6 +192,21 @@ class BlockEdgeFeatures(BlockTask):
             with stage("dispatch"):
                 dense_dev = torch.from_numpy(dense).to(device)
                 vals_dev = torch.from_numpy(vals).to(device)
+                if responses:
+                    # one response per (filter, sigma) over the halo'd
+                    # block, cropped to the label window; the pairs come
+                    # from the labels alone, so they are extracted once
+                    # and only the values are gathered per response
+                    local = tuple(slice(b - ob, e - ob)
+                                  for b, ob, e in zip(begin, obegin, end))
+                    resp = [apply_filter(vals_dev, fn, s)[local]
+                            for fn, s in responses]
+                    u, v, _, ok = boundary_pair_values(
+                        dense_dev, resp[0], inner_shape=tuple(block.shape))
+                    handles = device_edge_stats_submit_multi(
+                        u, v, ok, [boundary_values(r) for r in resp],
+                        e_max=e_max)
+                    return block_id, lut, data, handles
                 if offsets is None:
                     u, v, val, ok = boundary_pair_values(
                         dense_dev, vals_dev, inner_shape=tuple(block.shape))
@@ -191,23 +227,30 @@ class BlockEdgeFeatures(BlockTask):
             if data is None:
                 np.savez(_block_feature_path(cfg["output_path"], block_id),
                          edge_ids=np.zeros(0, "int64"),
-                         features=np.zeros((0, N_FEATURES), "float64"))
+                         features=np.zeros((0, n_feats), "float64"))
                 log_fn(f"processed block {block_id}")
                 return
             if lut is None:
                 uv, edge_feats = handles
             else:
                 with stage("sync-execute"):
-                    uv_dense, edge_feats = device_edge_stats_finalize(
-                        handles, e_max)
+                    if responses:
+                        groups = [device_edge_stats_finalize(h, e_max)
+                                  for h in handles]
+                        uv_dense = groups[0][0]
+                        edge_feats = np.concatenate(
+                            [f[:, :9] for _, f in groups]
+                            + [groups[-1][1][:, 9:10]], axis=1)
+                    else:
+                        uv_dense, edge_feats = device_edge_stats_finalize(
+                            handles, e_max)
                 uv = np.stack([lut[uv_dense[:, 0]], lut[uv_dense[:, 1]]],
                               axis=1)
             if offsets is None:
                 # boundary faces share the RAG's ownership rule, so every
                 # edge maps into the block's own sub-graph
                 local_ids = g.find_edge_ids(data["edges"], uv)
-                feats = np.zeros((len(data["edges"]), N_FEATURES),
-                                 "float64")
+                feats = np.zeros((len(data["edges"]), n_feats), "float64")
                 feats[local_ids] = edge_feats
                 out_ids = data["edge_ids"]
             else:

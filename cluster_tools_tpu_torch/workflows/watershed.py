@@ -208,7 +208,7 @@ def _run_ws_block_tensor(data: np.ndarray, cfg: Dict[str, Any],
     from ..ops.components import (connected_components,
                                   connected_components_batched)
     from ..ops.edt import distance_transform_edt
-    from ..ops.filters import gaussian, local_maxima, rank_pool_max
+    from ..ops.filters import gaussian, local_maxima, rank_pool
     from ..ops.watershed import (coarse, seeded_watershed,
                                  seeded_watershed_batched, size_filter)
 
@@ -239,7 +239,7 @@ def _run_ws_block_tensor(data: np.ndarray, cfg: Dict[str, Any],
         # ``z * slice_size`` make the labels unique across slices
         dt_smooth = (gaussian(dt, (0, sigma_seeds, sigma_seeds))
                      if sigma_seeds else dt)
-        maxima = (dt_smooth >= rank_pool_max(dt_smooth, (1, 5, 5))) & fg
+        maxima = (dt_smooth >= rank_pool(dt_smooth, (1, 5, 5), "max")) & fg
         seeds = connected_components_batched(maxima, connectivity=2,
                                              method="propagation")
         ws = seeded_watershed_batched(height, seeds, tmask,

@@ -273,13 +273,15 @@ def test_new_device_tasks_raise_without_a_card(tmp_path, which):
 
 @pytest.mark.parametrize("task,task_cfg,kw,match", [
     ("watershed", {}, {"target": "mesh"}, "ROADMAP A14"),
-    ("block_edge_features", {"filters": ["gaussianSmoothing"],
-                             "sigmas": [1.0]}, {}, "ROADMAP A13"),
+    ("edge_costs", {}, {"rf_path": "rf.pkl"}, "ROADMAP A16"),
 ])
 def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
                                             match):
+    """The split chain's options that are still to be ported raise, naming
+    their ROADMAP item (the filter-bank edge features, A13, are ported:
+    ``tests/test_torch_edge_filters.py``)."""
     from cluster_tools_tpu_torch.core.config import ConfigDir
-    from cluster_tools_tpu_torch.workflows.features import BlockEdgeFeatures
+    from cluster_tools_tpu_torch.workflows.costs import EdgeCostsWorkflow
     from cluster_tools_tpu_torch.workflows.watershed import WatershedTask
 
     cfg = str(tmp_path / "cfg")
@@ -292,10 +294,46 @@ def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
             WatershedTask(input_path="a.n5", input_key="x",
                           output_path="a.n5", output_key="w", **common)
         else:
-            BlockEdgeFeatures(
-                input_path="a.n5", input_key="x", labels_path="a.n5",
-                labels_key="w", graph_path="p.n5", output_path="p.n5",
-                **common)
+            EdgeCostsWorkflow(features_path="p.n5", features_key="f",
+                              output_path="p.n5", output_key="c",
+                              graph_path="p.n5", **common).requires()
+
+
+def test_no_raise_names_the_filter_bank_item():
+    """A13 (filter banks and the workflows that use them) is ported: no
+    ``NotImplementedError`` of the port names it."""
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            if "ROADMAP A13" in f.read():
+                bad.append(os.path.relpath(path, ROOT))
+    assert not bad, bad
+
+
+def test_filter_bank_modules_are_held_to_the_rule():
+    """The filter bank and the workflows that use it (affinities, volume
+    copies, pyramids and object fitting, pixel classification, region
+    features, post-processing) are among the modules the two import
+    checks walk, and the package exports the JAX package's names of
+    them."""
+    import cluster_tools_tpu_torch as ctp
+
+    mods = set(_port_modules())
+    for name in ("ops.filters", "ops.edt", "workflows.affinities",
+                 "workflows.copy_volume", "workflows.downscaling",
+                 "workflows.pixel_classification",
+                 "workflows.region_features", "workflows.postprocess"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+    for name in ("InsertAffinities", "SmoothedGradients", "CopyVolumeTask",
+                 "DownscalingWorkflow", "PainteraToBdvWorkflow",
+                 "ScaleToBoundariesTask", "UpscaleTask", "ImageFilterTask",
+                 "PixelClassificationWorkflow", "WriteCarving",
+                 "RegionFeaturesWorkflow", "SizeFilterWorkflow",
+                 "FilterLabelsWorkflow", "FilterByThresholdWorkflow",
+                 "ConnectedComponentsWorkflow", "FilterOrphansWorkflow",
+                 "SizeFilterAndGraphWatershedWorkflow"):
+        assert name in ctp.__all__ and getattr(ctp, name).__module__ \
+            .startswith("cluster_tools_tpu_torch.workflows."), name
 
 
 @pytest.mark.parametrize("task_cfg,match", [
