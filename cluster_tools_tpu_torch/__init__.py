@@ -18,9 +18,16 @@ the lifted multicut and agglomerative clustering segmentations
 object fitting (``DownscalingWorkflow``, ``PainteraToBdvWorkflow``,
 ``UpscaleTask``, ``ScaleToBoundariesTask``), region features and the
 post-processing workflows (size filters, graph watershed, orphans,
-graph connected components).  Plain PyTorch for the device code, a
-hand-written CUDA kernel where the JAX package had a Pallas kernel
-(``csrc/``), and the same task configs, container formats and outputs.
+graph connected components); the tools run after a segmentation —
+per-object morphology, meshes and skeletons (``MorphologyWorkflow``,
+``MeshWorkflow``, ``SkeletonWorkflow``, ``UpsampleSkeletons``), label
+multisets and the Paintera and BigCat exports
+(``LabelMultisetWorkflow``, ``PainteraConversionWorkflow``,
+``BigcatWorkflow``) — masking (``BlocksFromMask``, ``MinFilterMask``),
+the decomposition multicut (``DecompositionWorkflow``) and the debugging
+checks (``CheckSubGraphs``, ``CheckComponents``).  Plain PyTorch for the
+device code, a hand-written CUDA kernel where the JAX package had a Pallas
+kernel (``csrc/``), and the same task configs, container formats and outputs.
 Device tasks run on the global config's ``"device"`` (default
 ``"cuda"``); the CPU is used only when asked for.
 """

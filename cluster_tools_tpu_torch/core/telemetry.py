@@ -16,7 +16,12 @@ thread:
 * the resident server's metrics surface: cumulative-bucket latency
   histograms, a Prometheus text-format writer with a promtool-style lint,
   the registries of canonical stage and metric-family names, and the
-  crash flight recorder.
+  crash flight recorder;
+* span-derived rollups (device busy seconds and fraction, the merged
+  busy timeline and pipeline bubbles, the queue-wait histogram, the
+  memory view; :func:`summary`), per-process trace shards merged onto one
+  timeline (:func:`merge_chrome_traces`), and the rollup-vs-rollup
+  regression gate (:func:`diff_rollups`).
 
 Telemetry off is free: every instrumentation site guards on
 :func:`enabled` (one attribute read), and spans are emitted AFTER the
@@ -33,7 +38,7 @@ import os
 import re
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, \
     Optional, Sequence, Tuple, Union
 
@@ -75,6 +80,12 @@ STAGE_REGISTRY = {
 }
 
 
+def register_stage(name: str) -> str:
+    """Register an extension stage name (returns it, for inline use)."""
+    STAGE_REGISTRY.add(name)
+    return name
+
+
 def is_registered(name: str) -> bool:
     return name in STAGE_REGISTRY
 
@@ -106,6 +117,12 @@ METRIC_REGISTRY = {
     "ctt_edit_warm_reused_total", "ctt_edit_fallback_total",
     "ctt_edit_blocks_rewritten_total", "ctt_edit_round_trip_seconds",
 }
+
+
+def register_metric(name: str) -> str:
+    """Register an extension metric family name (returns it)."""
+    METRIC_REGISTRY.add(name)
+    return name
 
 
 def is_registered_metric(name: str) -> bool:
@@ -225,6 +242,10 @@ def correlation(corr_id: str) -> _CorrCtx:
     (status JSONs carry the same 12-hex retry correlation id) back to
     their Perfetto spans."""
     return _CorrCtx(str(corr_id))
+
+
+def current_correlation() -> Optional[str]:
+    return _REC.corr[-1] if _REC.corr else None
 
 
 def _attach_corr(attrs: Dict[str, Any]) -> Dict[str, Any]:
@@ -373,6 +394,12 @@ def host_memory_bytes() -> Dict[str, int]:
     return out
 
 
+def host_peak_rss_gb() -> float:
+    """Peak host RSS in GiB (1024-based): the one helper every
+    ``peak_rss_gb`` field records."""
+    return host_memory_bytes()["hwm"] / _GIB
+
+
 def device_memory_bytes() -> Optional[Dict[str, int]]:
     """Device memory from ``torch.cuda.memory_stats()``:
     ``{"in_use": bytes, "peak": bytes}``, or None when torch was not
@@ -437,6 +464,41 @@ def annotate_memory(sp) -> None:
     sample_memory()
 
 
+class MemorySampler:
+    """Optional background sampling probe: one daemon thread calling
+    :func:`sample_memory` every ``interval_s`` while telemetry is
+    enabled.  ``stop()`` joins it; usable as a context manager."""
+
+    def __init__(self, interval_s: float = 0.25):
+        self.interval_s = float(interval_s)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "MemorySampler":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name="mem-sampler", daemon=True)
+            self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            sample_memory()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+
 #: counter-series / watermark-attr names whose max is the HOST memory
 #: peak, resp. the DEVICE memory peak
 _HOST_PEAK_SERIES = ("host_hwm_gb", "host_rss_gb",
@@ -496,6 +558,161 @@ def memory_rollup(spans: Optional[Sequence[Span]] = None
                             for name, wm in sorted(watermarks.items())},
     }
 
+
+
+# ---------------------------------------------------------------------------
+# span-derived rollups
+# ---------------------------------------------------------------------------
+
+def _merge_intervals(iv: List[Tuple[float, float]]
+                     ) -> List[Tuple[float, float]]:
+    """Union-merge of (start, end) intervals (sorted output)."""
+    out: List[Tuple[float, float]] = []
+    for t0, t1 in sorted(iv):
+        if out and t0 <= out[-1][1]:
+            if t1 > out[-1][1]:
+                out[-1] = (out[-1][0], t1)
+        else:
+            out.append((t0, t1))
+    return out
+
+
+def _device_stage_spans(spans: Sequence[Span]) -> List[Span]:
+    return [s for s in spans if s.cat == "stage"
+            and s.name.startswith(DEVICE_STAGE_PREFIXES)]
+
+
+def device_busy_seconds(spans: Optional[Sequence[Span]] = None) -> float:
+    """SUM of device-path stage span durations — the same semantics as
+    the ``device_busy_frac`` accumulator in task status JSONs (sum of
+    device-prefixed stage seconds), so the two cross-check directly."""
+    if spans is None:
+        spans = spans_snapshot()
+    return float(sum(s.t1 - s.t0 for s in _device_stage_spans(spans)))
+
+
+def busy_timeline(spans: Optional[Sequence[Span]] = None,
+                  prefixes: Tuple[str, ...] = DEVICE_STAGE_PREFIXES
+                  ) -> List[Tuple[float, float]]:
+    """Union-merged (start, end) intervals where at least one stage with
+    a matching prefix was active — the device-busy timeline.  (One card,
+    one merged timeline; callers with multi-device traces can filter
+    spans by a ``device`` attr before merging.)"""
+    if spans is None:
+        spans = spans_snapshot()
+    return _merge_intervals(
+        [(s.t0, s.t1) for s in spans if s.cat == "stage"
+         and s.name.startswith(prefixes)])
+
+
+def device_busy_fraction(wall: Optional[float] = None,
+                         spans: Optional[Sequence[Span]] = None
+                         ) -> Optional[float]:
+    """Device-busy seconds / wall (clamped to 1.0, like the accumulator).
+    ``wall`` defaults to the trace window (earliest t0 to latest t1)."""
+    if spans is None:
+        spans = spans_snapshot()
+    if wall is None:
+        wall = trace_window(spans)
+    if not wall:
+        return None
+    return min(device_busy_seconds(spans) / wall, 1.0)
+
+
+def pipeline_bubble_fraction(spans: Optional[Sequence[Span]] = None,
+                             wall: Optional[float] = None
+                             ) -> Optional[float]:
+    """Fraction of the trace window where NO device-path stage was
+    active — the pipeline-bubble metric.  Uses the union-merged
+    timeline (overlapping stages don't double-count)."""
+    if spans is None:
+        spans = spans_snapshot()
+    if wall is None:
+        wall = trace_window(spans)
+    if not wall:
+        return None
+    covered = sum(t1 - t0 for t0, t1 in busy_timeline(spans))
+    return max(1.0 - covered / wall, 0.0)
+
+
+def trace_window(spans: Optional[Sequence[Span]] = None) -> float:
+    if spans is None:
+        spans = spans_snapshot()
+    if not spans:
+        return 0.0
+    return max(s.t1 for s in spans) - min(s.t0 for s in spans)
+
+
+_DEFAULT_WAIT_BINS = (0.001, 0.01, 0.1, 1.0, 10.0)
+
+
+def queue_wait_histogram(bins: Sequence[float] = _DEFAULT_WAIT_BINS,
+                         spans: Optional[Sequence[Span]] = None
+                         ) -> Dict[str, Any]:
+    """Prometheus-style cumulative histogram over ``cat='queue-wait'``
+    span durations (BoundedPool submit->start waits, server request
+    queue waits): ``{"buckets": {"0.01": n, ..., "+Inf": n}, "count",
+    "sum"}``."""
+    if spans is None:
+        spans = spans_snapshot()
+    waits = [s.t1 - s.t0 for s in spans if s.cat == "queue-wait"]
+    buckets = {}
+    for b in bins:
+        buckets[repr(float(b))] = sum(1 for w in waits if w <= b)
+    buckets["+Inf"] = len(waits)
+    return {"buckets": buckets, "count": len(waits),
+            "sum": round(float(sum(waits)), 6)}
+
+
+def rollup_spans(spans: Sequence[Span], wall: Optional[float] = None,
+                 dropped: int = 0) -> Dict[str, Any]:
+    """The rollup computation over an EXPLICIT span list — what
+    :func:`summary` applies to the live ring and
+    :func:`merge_chrome_traces` applies to a merged multi-process
+    trace."""
+    window = trace_window(spans)
+    if wall is None:
+        wall = window
+    stage_seconds: Dict[str, float] = {}
+    stage_entries: Dict[str, int] = {}
+    for s in spans:
+        if s.cat != "stage":
+            continue
+        stage_seconds[s.name] = stage_seconds.get(s.name, 0.0) \
+            + (s.t1 - s.t0)
+        stage_entries[s.name] = stage_entries.get(s.name, 0) \
+            + int(s.attrs.get("count", 1))
+    busy = device_busy_seconds(spans)
+    merged = sum(t1 - t0 for t0, t1 in busy_timeline(spans))
+    return {
+        "n_spans": len(spans),
+        "dropped": dropped,
+        "by_cat": dict(Counter(s.cat for s in spans)),
+        "window_s": round(window, 4),
+        "wall_s": round(wall, 4) if wall else None,
+        "stage_seconds": {k: round(v, 4) for k, v in sorted(
+            stage_seconds.items(), key=lambda kv: -kv[1])},
+        "stage_entries": dict(sorted(stage_entries.items(),
+                                     key=lambda kv: -kv[1])),
+        "device_busy_s": round(busy, 4),
+        "device_busy_timeline_s": round(merged, 4),
+        "device_busy_frac": (round(min(busy / wall, 1.0), 4)
+                             if wall else None),
+        "pipeline_bubble_frac": (round(max(1.0 - merged / wall, 0.0), 4)
+                                 if wall else None),
+        "queue_wait": queue_wait_histogram(spans=spans),
+        "memory": memory_rollup(spans),
+    }
+
+
+def summary(wall: Optional[float] = None) -> Dict[str, Any]:
+    """One-call rollup of the recorded trace: span counts by category,
+    per-stage second sums, device-busy (sum AND merged-timeline views),
+    bubble fraction, queue-wait histogram, memory rollup, ring drops.
+    ``wall`` (e.g. the measured workflow wall) scopes the busy fraction;
+    defaults to the trace window."""
+    return rollup_spans(spans_snapshot(), wall=wall,
+                        dropped=dropped_count())
 
 
 # ---------------------------------------------------------------------------
@@ -582,6 +799,108 @@ def _span_to_dict(s: Span) -> Dict[str, Any]:
     return {"sid": s.sid, "parent": s.parent, "name": s.name,
             "cat": s.cat, "t0": s.t0, "t1": s.t1, "tid": s.tid,
             "tname": s.tname, "attrs": s.attrs}
+
+
+def _span_from_dict(d: Dict[str, Any]) -> Span:
+    return Span(int(d["sid"]), d.get("parent"), d["name"], d["cat"],
+                float(d["t0"]), float(d["t1"]), int(d.get("tid", 0)),
+                d.get("tname", ""), dict(d.get("attrs") or {}))
+
+
+def export_trace_shard(path: str, process_index: int = 0,
+                       process_count: int = 1,
+                       wall_anchor: Optional[float] = None,
+                       perf_anchor: Optional[float] = None,
+                       spans: Optional[Sequence[Span]] = None) -> int:
+    """Write one process's RAW spans plus its clock anchors as a trace
+    SHARD (JSON).  The recorder clock (``perf_counter``) is not
+    comparable across processes; the (wall, perf) anchor pair — taken
+    at one barrier by every process — lets
+    :func:`merge_chrome_traces` rebase every shard onto one shared
+    timeline.  Returns the span count; written atomically."""
+    if spans is None:
+        spans = spans_snapshot()
+    if wall_anchor is None:
+        wall_anchor = time.time()
+    if perf_anchor is None:
+        perf_anchor = _REC.clock()
+    payload = {
+        "process_index": int(process_index),
+        "process_count": int(process_count),
+        "wall_anchor": float(wall_anchor),
+        "perf_anchor": float(perf_anchor),
+        "dropped": dropped_count(),
+        "spans": [_span_to_dict(s) for s in spans],
+    }
+    tmp = path + ".tmp%d" % os.getpid()
+    with open(tmp, "w") as f:
+        json.dump(payload, f, sort_keys=True, separators=(",", ":"),
+                  default=str)
+    os.replace(tmp, path)
+    return len(payload["spans"])
+
+
+def load_trace_shard(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def merge_chrome_traces(shard_paths: Sequence[str], out_path: str,
+                        wall: Optional[float] = None) -> Dict[str, Any]:
+    """Merge per-process trace shards into ONE Perfetto-loadable Chrome
+    trace and one cross-mesh rollup.
+
+    Each shard's spans are rebased onto a shared timeline:
+    ``t' = (t - perf_anchor_i) + (wall_anchor_i - min_j wall_anchor_j)``
+    — the file-handshake wall anchors estimate per-process clock offset,
+    the perf anchors remove each process's arbitrary monotonic origin.
+    Process ``i`` becomes Perfetto pid ``process_index + 1`` (the
+    single-process exporter's pinned ``pid=1`` collides across shards).
+    The merged span list feeds the SAME rollups as a single-process
+    trace, so ``device_busy_s``/bubble fraction aggregate across the
+    mesh; per-process ``device_busy_s`` is returned for cross-checks."""
+    shards = [load_trace_shard(p) for p in shard_paths]
+    if not shards:
+        raise ValueError("merge_chrome_traces: no shards")
+    shards.sort(key=lambda sh: int(sh.get("process_index", 0)))
+    wall0 = min(float(sh.get("wall_anchor", 0.0)) for sh in shards)
+    rebased: List[Tuple[int, List[Span]]] = []
+    for sh in shards:
+        pidx = int(sh.get("process_index", 0))
+        off = (float(sh.get("wall_anchor", 0.0)) - wall0) \
+            - float(sh.get("perf_anchor", 0.0))
+        spans = [
+            Span(s.sid, s.parent, s.name, s.cat, s.t0 + off, s.t1 + off,
+                 s.tid, s.tname, s.attrs)
+            for s in (_span_from_dict(d) for d in sh.get("spans") or [])
+        ]
+        rebased.append((pidx, spans))
+    all_spans = [s for _, spans in rebased for s in spans]
+    base = min((s.t0 for s in all_spans), default=0.0)
+    events: List[Dict[str, Any]] = []
+    processes: List[Dict[str, Any]] = []
+    for (pidx, spans), sh in zip(rebased, shards):
+        pid = pidx + 1
+        events.extend(_process_events(spans, pid, base,
+                                      f"cluster_tools_tpu_torch p{pidx}"))
+        processes.append({
+            "process_index": pidx,
+            "pid": pid,
+            "n_spans": len(spans),
+            "dropped": int(sh.get("dropped", 0)),
+            "device_busy_s": round(device_busy_seconds(spans), 4),
+            "clock_offset_s": round(
+                float(sh.get("wall_anchor", 0.0)) - wall0, 6),
+        })
+    n_events = _write_trace_events(out_path, events)
+    rollups = rollup_spans(all_spans, wall=wall,
+                           dropped=sum(p["dropped"] for p in processes))
+    return {
+        "n_events": n_events,
+        "n_processes": len(processes),
+        "processes": processes,
+        "rollups": rollups,
+    }
 
 
 
@@ -698,6 +1017,123 @@ def histogram_family(name: str, help_text: str,
     for labels, hist in items:
         samples.extend(hist.to_samples(labels))
     return (name, "histogram", help_text, samples)
+
+
+# ---------------------------------------------------------------------------
+# trace-diff regression gate (rollup-vs-rollup comparison)
+# ---------------------------------------------------------------------------
+
+def diff_rollups(a: Dict[str, Any], b: Dict[str, Any], *,
+                 rel_threshold: float = 0.2, abs_floor_s: float = 0.05,
+                 bubble_abs: float = 0.05,
+                 mem_abs_floor_gb: float = 0.25) -> Dict[str, Any]:
+    """Compare two span rollups (``summary()`` dicts, or the ``rollups``
+    section of a TRACE artifact): per-stage seconds, total device-busy
+    seconds, the pipeline-bubble fraction, and the memory peaks.
+
+    A quantity REGRESSES when the candidate ``b`` exceeds the baseline
+    ``a`` by more than ``max(abs_floor_s, rel_threshold * a)`` (the abs
+    floor keeps microsecond stages from tripping the relative gate on
+    noise).  Device-path stages, the device-busy total, and the memory
+    peaks (``peak_host_rss_gb``/``peak_device_gb``, against
+    ``max(mem_abs_floor_gb, rel_threshold * a)``) GATE; host/store stage
+    regressions are reported as warnings only, because host time is the
+    thing device optimizations deliberately trade against.  A baseline
+    or candidate WITHOUT a memory section (pre-memory artifacts,
+    malformed rollups) degrades to skipping that memory check — never a
+    crash, never a false regression.  A gate exits nonzero iff
+    ``regressed``."""
+    sa = a.get("stage_seconds") or {}
+    sb = b.get("stage_seconds") or {}
+    if not isinstance(sa, dict):
+        sa = {}
+    if not isinstance(sb, dict):
+        sb = {}
+    stages: Dict[str, Dict[str, Any]] = {}
+    regressions: List[str] = []
+    warnings: List[str] = []
+    def _stage_val(stages_doc, name):
+        try:
+            return float(stages_doc.get(name, 0.0) or 0.0)
+        except (TypeError, ValueError):
+            return 0.0
+
+    for name in sorted(set(sa) | set(sb)):
+        av, bv = _stage_val(sa, name), _stage_val(sb, name)
+        delta = bv - av
+        worse = delta > max(abs_floor_s, rel_threshold * av)
+        device = name.startswith(DEVICE_STAGE_PREFIXES)
+        stages[name] = {
+            "a_s": round(av, 4), "b_s": round(bv, 4),
+            "delta_s": round(delta, 4),
+            "rel": (round(delta / av, 4) if av > 0 else None),
+            "device": device, "regressed": worse,
+        }
+        if worse:
+            (regressions if device else warnings).append(f"stage:{name}")
+    def _num(doc, key, default=None):
+        try:
+            v = doc.get(key, default)
+            return default if v is None else float(v)
+        except (TypeError, ValueError):
+            return default
+
+    busy_a = _num(a, "device_busy_s", 0.0)
+    busy_b = _num(b, "device_busy_s", 0.0)
+    busy_delta = busy_b - busy_a
+    busy_worse = busy_delta > max(abs_floor_s, rel_threshold * busy_a)
+    if busy_worse:
+        regressions.append("device_busy_s")
+    bub_a = _num(a, "pipeline_bubble_frac")
+    bub_b = _num(b, "pipeline_bubble_frac")
+    bub_delta = (None if bub_a is None or bub_b is None
+                 else bub_b - bub_a)
+    bub_worse = bub_delta is not None and bub_delta > bubble_abs
+    if bub_worse:
+        regressions.append("pipeline_bubble_frac")
+    ma = a.get("memory")
+    mb = b.get("memory")
+    if not isinstance(ma, dict):
+        ma = {}
+    if not isinstance(mb, dict):
+        mb = {}
+    memory: Dict[str, Dict[str, Any]] = {}
+    for key in ("peak_host_rss_gb", "peak_device_gb"):
+        av, bv = ma.get(key), mb.get(key)
+        try:
+            av = None if av is None else float(av)
+            bv = None if bv is None else float(bv)
+        except (TypeError, ValueError):
+            av = bv = None
+        if av is None or bv is None:
+            # pre-memory baseline (or candidate without samples):
+            # degrade to "skip this check", never crash the gate
+            memory[key] = {"skipped": True, "a_gb": av, "b_gb": bv,
+                           "regressed": False}
+            continue
+        delta = bv - av
+        worse = delta > max(mem_abs_floor_gb, rel_threshold * av)
+        memory[key] = {"a_gb": round(av, 4), "b_gb": round(bv, 4),
+                       "delta_gb": round(delta, 4), "regressed": worse}
+        if worse:
+            regressions.append(f"memory:{key}")
+    return {
+        "thresholds": {"rel": rel_threshold, "abs_floor_s": abs_floor_s,
+                       "bubble_abs": bubble_abs,
+                       "mem_abs_floor_gb": mem_abs_floor_gb},
+        "stages": stages,
+        "device_busy": {"a_s": round(busy_a, 4), "b_s": round(busy_b, 4),
+                        "delta_s": round(busy_delta, 4),
+                        "regressed": busy_worse},
+        "bubble": {"a": bub_a, "b": bub_b,
+                   "delta": (round(bub_delta, 4)
+                             if bub_delta is not None else None),
+                   "regressed": bub_worse},
+        "memory": memory,
+        "regressions": regressions,
+        "warnings": warnings,
+        "regressed": bool(regressions),
+    }
 
 
 # ---------------------------------------------------------------------------

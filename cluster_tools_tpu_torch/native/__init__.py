@@ -73,6 +73,8 @@ def load() -> ctypes.CDLL:
         lib.size_filter_u8.restype = None
         lib.graph_watershed.argtypes = [i64, i64, p_i64, p_f64, p_u64]
         lib.graph_watershed.restype = None
+        lib.skeletonize_3d.argtypes = [p_u8, i64, i64, i64]
+        lib.skeletonize_3d.restype = None
         _lib = lib
         return _lib
 
@@ -319,3 +321,18 @@ def size_filter_u8(height: np.ndarray, labels: np.ndarray,
         raise ValueError("labels and height need the same shape")
     load().size_filter_u8(hq, *hq.shape, out, int(min_size))
     return out
+
+
+# ---------------------------------------------------------------------------
+# skeletonization
+# ---------------------------------------------------------------------------
+
+def skeletonize_3d(volume: np.ndarray) -> np.ndarray:
+    """Thin a 3d binary volume to a 1-voxel skeleton by topological
+    border-peeling (skimage skeletonize_3d equivalent; the reference's
+    skeletons component uses that — skeletons/skeletonize.py:129-157)."""
+    if volume.ndim != 3:
+        raise ValueError("skeletonize_3d expects a 3d volume")
+    vol = np.ascontiguousarray(volume != 0, dtype=np.uint8)
+    load().skeletonize_3d(vol, *vol.shape)
+    return vol.astype(bool)

@@ -5,23 +5,32 @@ and the mutex watershed), connected components of a thresholded map,
 block stitching, node labels and evaluation; the filter-bank workflows
 (pixel features and classification, smoothed gradients), derived
 affinities, multiscale pyramids and object fitting, region features and
-the post-processing toolbox.  ``__all__`` lists the JAX
-package's exports that are ported; ``EvaluationWorkflow`` and
-``NodeLabelWorkflow``, which the JAX package leaves out of its exports,
-are importable here all the same."""
+the post-processing toolbox; the tools run after a segmentation
+(morphology, meshes, skeletons, label multisets and the Paintera and
+BigCat exports), masking, the decomposition multicut and the debugging
+checks.  ``__all__`` lists the JAX package's exports that are ported;
+``EvaluationWorkflow`` and ``NodeLabelWorkflow``, which the JAX package
+leaves out of its exports, are importable here all the same."""
 
 from .affinities import InsertAffinities, SmoothedGradients
 from .copy_volume import CopyVolumeTask
+from .debugging import CheckComponents, CheckSubGraphs
+from .decomposition import DecompositionWorkflow
 from .downscaling import (DownscalingWorkflow, PainteraToBdvWorkflow,
                           ScaleToBoundariesTask, UpscaleTask)
 from .evaluation import EvaluationWorkflow
 from .graph import GraphWorkflow
 from .inference import InferenceTask
+from .label_multisets import LabelMultisetWorkflow
 from .lifted_features import LiftedFeaturesFromNodeLabelsWorkflow
 from .lifted_multicut import LiftedMulticutWorkflow
+from .masking import BlocksFromMask, MinFilterMask
+from .meshes import MeshWorkflow
+from .morphology import MorphologyWorkflow
 from .multicut import MulticutWorkflow
 from .mutex_watershed import MwsWorkflow, TwoPassMwsWorkflow
 from .node_labels import NodeLabelWorkflow
+from .paintera import BigcatWorkflow, PainteraConversionWorkflow
 from .pixel_classification import (ImageFilterTask,
                                    PixelClassificationWorkflow, WriteCarving)
 from .postprocess import (ConnectedComponentsWorkflow,
@@ -35,26 +44,31 @@ from .segmentation import (AgglomerativeClusteringWorkflow,
                            LiftedMulticutSegmentationWorkflow,
                            MulticutSegmentationWorkflow, ProblemWorkflow,
                            SimpleStitchingWorkflow)
+from .skeletons import SkeletonWorkflow, UpsampleSkeletons
 from .stitching import StitchingAssignmentsWorkflow, StitchingWorkflow
 from .thresholded_components import ThresholdedComponentsWorkflow
 from .watershed import (AgglomerateTask, WatershedFromSeedsTask,
                         WatershedWorkflow)
 
 __all__ = [
-    "AgglomerateTask", "AgglomerativeClusteringWorkflow",
+    "AgglomerateTask", "AgglomerativeClusteringWorkflow", "BigcatWorkflow",
+    "BlocksFromMask", "CheckComponents", "CheckSubGraphs",
     "ConnectedComponentsWorkflow", "CopyVolumeTask",
-    "DownscalingWorkflow", "FilterByThresholdWorkflow",
-    "FilterLabelsWorkflow", "FilterOrphansWorkflow",
-    "GraphWorkflow", "ImageFilterTask", "InferenceTask", "InsertAffinities",
+    "DecompositionWorkflow", "DownscalingWorkflow",
+    "FilterByThresholdWorkflow", "FilterLabelsWorkflow",
+    "FilterOrphansWorkflow", "GraphWorkflow", "ImageFilterTask",
+    "InferenceTask", "InsertAffinities", "LabelMultisetWorkflow",
     "LiftedFeaturesFromNodeLabelsWorkflow",
     "LiftedMulticutSegmentationWorkflow", "LiftedMulticutWorkflow",
+    "MeshWorkflow", "MinFilterMask", "MorphologyWorkflow",
     "MulticutSegmentationWorkflow", "MulticutWorkflow", "MwsWorkflow",
-    "PainteraToBdvWorkflow", "PixelClassificationWorkflow",
-    "ProblemWorkflow", "RegionFeaturesWorkflow", "RelabelWorkflow",
-    "ScaleToBoundariesTask", "SimpleStitchingWorkflow",
-    "SizeFilterAndGraphWatershedWorkflow", "SizeFilterWorkflow",
-    "SmoothedGradients", "StitchingAssignmentsWorkflow",
-    "StitchingWorkflow", "ThresholdedComponentsWorkflow",
-    "TwoPassMwsWorkflow", "UpscaleTask", "WatershedFromSeedsTask",
-    "WatershedWorkflow", "WriteCarving",
+    "PainteraConversionWorkflow", "PainteraToBdvWorkflow",
+    "PixelClassificationWorkflow", "ProblemWorkflow",
+    "RegionFeaturesWorkflow", "RelabelWorkflow", "ScaleToBoundariesTask",
+    "SimpleStitchingWorkflow", "SizeFilterAndGraphWatershedWorkflow",
+    "SizeFilterWorkflow", "SkeletonWorkflow", "SmoothedGradients",
+    "StitchingAssignmentsWorkflow", "StitchingWorkflow",
+    "ThresholdedComponentsWorkflow", "TwoPassMwsWorkflow", "UpscaleTask",
+    "UpsampleSkeletons", "WatershedFromSeedsTask", "WatershedWorkflow",
+    "WriteCarving",
 ]

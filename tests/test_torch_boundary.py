@@ -377,3 +377,36 @@ def test_mesh_target_raises(tmp_path):
 
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         EXECUTORS["mesh"]()
+
+
+def test_post_segmentation_modules_are_held_to_the_rule():
+    """The tools run after a segmentation (morphology, meshes, skeletons,
+    label multisets, the Paintera and BigCat exports), masking, the
+    decomposition multicut, the debugging checks, the affine and mesh
+    utilities, the telemetry rollups and the sweep ops are among the
+    modules the two import checks walk; the package exports the JAX
+    package's names of them, and no source of the port names their
+    ROADMAP item (A17b) as still to come."""
+    import cluster_tools_tpu_torch as ctp
+
+    mods = set(_port_modules())
+    for name in ("workflows.morphology", "workflows.masking",
+                 "workflows.decomposition", "workflows.debugging",
+                 "workflows.meshes", "workflows.skeletons",
+                 "workflows.label_multisets", "workflows.paintera",
+                 "utils", "utils.mesh", "utils.transformations",
+                 "core.telemetry", "ops.sweep", "native"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+    for name in ("BigcatWorkflow", "PainteraConversionWorkflow",
+                 "LabelMultisetWorkflow", "MorphologyWorkflow",
+                 "MeshWorkflow", "SkeletonWorkflow", "UpsampleSkeletons",
+                 "BlocksFromMask", "MinFilterMask", "DecompositionWorkflow",
+                 "CheckSubGraphs", "CheckComponents"):
+        assert name in ctp.__all__ and getattr(ctp, name).__module__ \
+            .startswith("cluster_tools_tpu_torch.workflows."), name
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            if "A17b" in f.read():
+                bad.append(os.path.relpath(path, ROOT))
+    assert not bad, bad
