@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, then runs fifteen phases, each of which must pass:
+sources, then runs sixteen phases, each of which must pass:
 
 1. the build;
 2. the min-plus EDT kernel against its plain PyTorch version (in place
@@ -116,7 +116,7 @@ sources, then runs fifteen phases, each of which must pass:
    ``DownscalingWorkflow`` on phase 4's whole volume, s1 equal to the
    numpy window mean;
 15. the tools run after a segmentation and the sweep ops, which launch no
-   kernel of the port: (a) card against CPU on ``(32, 128, 128)``:
+   kernel of the port: (a) card against CPU on ``(16, 128, 128)``:
    ``sweep_watershed_impl`` (plain, masked, with a size filter),
    ``sweep_watershed``, ``sweep_cc_impl``, ``compact_ids``,
    ``rle_encode``/``rle_decode`` and ``PainteraConversionWorkflow``,
@@ -139,7 +139,24 @@ sources, then runs fifteen phases, each of which must pass:
    (d) ``PainteraConversionWorkflow`` of phase 4's fragments on phase
    12's crop with phase 13c's multicut table, then ``BigcatWorkflow`` to
    N5: s1, the label-to-block lookup of 16 ids and the fragment-segment
-   pairs equal to numpy's.
+   pairs equal to numpy's;
+16. the storage formats the port writes and reads without h5py,
+   tensorstore or numcodecs (the card's machine has none of them): (a)
+   phase 12's crop written by the port's HDF5 writer (``crop.h5``,
+   uint8, chunks ``[25, 256, 256]``, gzip), the fused chain
+   (``MulticutSegmentationWorkflow(fused=True)``, default execution) run
+   ``.h5`` in and ``.h5`` out and again on the crop's N5 store, the
+   fragments and the segmentation identical, 3 kernel launches per block
+   per run; (b) the crop's raw data (uint8) and phase 4's fragments on it
+   (uint64) written to zarr with ``compression="blosc"`` and read back
+   identical, compressed bytes and write and read MB/s beside gzip's; (c)
+   ``WriteCarving`` of phase 13c's problem through the port's HDF5
+   writer, read back by its reader equal to what the task computed; (d)
+   a ``(50, 256, 256)`` corner of the crop as raw Knossos cubes (128^3,
+   zero-padded) read through ``file_reader(".knossos")`` equal to the
+   crop.  The random-forest workflows (``LearningWorkflow``,
+   ``EdgeCostsWorkflow(rf_path=...)``) need sklearn, which the card's
+   machine lacks: the CPU tests hold them.
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -2921,8 +2938,10 @@ def pyramid_path(root: str):
 # debugging, and the sweep ops
 # ---------------------------------------------------------------------------
 
-P15_SHAPE = (32, 128, 128)
-P15_BLOCK = [32, 64, 64]
+#: 15a's card-vs-CPU volume (cut from 32 deep for the script's time
+#: limit: its CPU side took up to 77 s, PERF.md section 4)
+P15_SHAPE = (16, 128, 128)
+P15_BLOCK = [16, 64, 64]
 #: 15a's size filter of the sweep watershed (voxels)
 P15_MIN_SIZE = 50
 #: 15b: the sweep watershed agrees with the flood on this share of the
@@ -3560,6 +3579,194 @@ def paintera_path(root: str, store: str, key: str, table_path: str):
     return {"paintera_s": wall, "bigcat_s": bc_wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the port's own storage formats — HDF5, blosc, Knossos — and
+# the carving export, on the card's machine (no h5py, tensorstore,
+# numcodecs)
+# ---------------------------------------------------------------------------
+
+#: 16a's HDF5 chunks of the crop's raw data
+H5_CHUNKS = [25, 256, 256]
+#: 16b's zarr chunks
+ZARR_CHUNKS = [25, 256, 256]
+#: 16d's corner of the crop, in Knossos cubes of 128^3
+KNOSSOS_CORNER = (50, 256, 256)
+
+
+def h5_fused_path(root: str, crop_store: str):
+    """Phase 16a: the crop in ``crop.h5`` (the port's HDF5 writer), the
+    fused chain ``.h5`` in and out, then on the crop's N5 store; the
+    fragments and segmentations identical, 3 launches per block per run.
+    Returns the launches of both runs."""
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    data = read_dataset(crop_store, "bmap")
+    wd = os.path.join(root, "h5")
+    os.makedirs(wd)
+    h5 = os.path.join(wd, "crop.h5")
+    t0 = time.perf_counter()
+    with file_reader(h5) as f:
+        f.require_dataset("bmap", shape=data.shape, chunks=H5_CHUNKS,
+                          dtype=data.dtype, compression="gzip")[:] = data
+    write_s = time.perf_counter() - t0
+    n_blocks = Blocking(list(CROP), list(BLOCK)).n_blocks
+    out, launches = {}, 0
+    for name, store, workdir in (("h5", h5, wd),
+                                 ("n5", crop_store,
+                                  os.path.dirname(crop_store))):
+        kernels.reset_counts()
+        wall, ws, seg, _ = run_workflow(workdir, store, BLOCK, "cuda",
+                                        tag="_16a")
+        calls = kernels.counts()["minplus"]
+        launches += calls
+        out[name] = (ws, seg)
+        log(f"h5-fused {name} wall_s {wall} voxels_per_s "
+            f"{data.size / wall} minplus launches {calls} n_fragments "
+            f"{int(ws.max())} n_segments {len(np.unique(seg))}")
+        if calls != 3 * n_blocks:
+            raise AssertionError(f"16a {name}: min-plus kernel launched "
+                                 f"{calls} times for {n_blocks} blocks")
+    same_ws = bool(np.array_equal(out["h5"][0], out["n5"][0]))
+    same_seg = bool(np.array_equal(out["h5"][1], out["n5"][1]))
+    log(f"h5-fused crop.h5 bytes {os.path.getsize(h5)} write_s {write_s} "
+        f"fragments h5 == n5 {same_ws} segmentation h5 == n5 {same_seg}")
+    if not (same_ws and same_seg and out["h5"][0].shape == CROP):
+        raise AssertionError("16a: the .h5 chain differs from the N5 chain")
+    return launches
+
+
+def blosc_path(root: str, crop_store: str):
+    """Phase 16b: the crop's raw data and fragments through blosc zarr
+    and, for comparison, zlib zarr; each read back identical.  Returns
+    the rates by array and compressor."""
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    rates = {}
+    for key in ("bmap", "frags"):
+        data = read_dataset(crop_store, key)
+        for comp in ("blosc", "gzip"):
+            path = os.path.join(root, "blosc", f"{key}_{comp}.zarr")
+            t0 = time.perf_counter()
+            with file_reader(path) as f:
+                f.require_dataset(key, shape=data.shape, chunks=ZARR_CHUNKS,
+                                  dtype=data.dtype, compression=comp)[:] = \
+                    data
+            t1 = time.perf_counter()
+            back = read_dataset(path, key)
+            t2 = time.perf_counter()
+            nbytes = sum(os.path.getsize(os.path.join(dp, n))
+                         for dp, _, names in os.walk(os.path.join(path, key))
+                         for n in names if not n.startswith("."))
+            same = bool(np.array_equal(back, data))
+            mb = data.nbytes / 1e6
+            rates[f"{key}-{comp}"] = {
+                "bytes": data.nbytes, "compressed_bytes": nbytes,
+                "write_mb_s": mb / (t1 - t0), "read_mb_s": mb / (t2 - t1)}
+            log(f"blosc-zarr {key} {data.dtype} {comp} "
+                f"{json.dumps(rates[f'{key}-{comp}'])} identical {same}")
+            if not same:
+                raise AssertionError(f"16b: {key} through {comp} differs")
+            del back
+    return rates
+
+
+def carving_path(root: str, crop_store: str):
+    """Phase 16c: ``WriteCarving`` of phase 13c's problem through the
+    port's HDF5 writer, read back by its reader: the serialization, the
+    weights, ``numNodes`` and every metadata dataset equal to what the
+    task computed."""
+    from cluster_tools_tpu_torch.core import hdf5
+    from cluster_tools_tpu_torch.core.graph import load_graph
+    from cluster_tools_tpu_torch.workflows.pixel_classification import \
+        WriteCarving
+
+    problem = os.path.join(root, "edits", "problem.n5")
+    wd = os.path.join(root, "carving")
+    os.makedirs(wd)
+    out = os.path.join(wd, "carving.ilp")
+    wall = timed_build(WriteCarving(
+        graph_path=problem, graph_key="s0/graph", features_path=problem,
+        features_key="features", output_path=out, raw_path=crop_store,
+        raw_key="bmap", uid="chip-smoke", tmp_folder=os.path.join(wd, "tmp")),
+        "cpu")
+    _, edges, _ = load_graph(problem, "s0/graph")
+    uv = edges.astype("uint32")
+    max_id = int(uv.max())
+    want_graph = WriteCarving.serialize_graph(uv, max_id)
+    weights = read_dataset(problem, "features")[:, 0] * 255.0
+    meta = {"Input Data/Role Names": [b"Raw Data", b"Overlay"],
+            "Input Data/StorageVersion": b"0.2",
+            "Input Data/infos/lane0000/Raw Data/allowLabels": True,
+            "Input Data/infos/lane0000/Raw Data/axisorder": b"zyx",
+            "Input Data/infos/lane0000/Raw Data/fromstack": False,
+            "Input Data/infos/lane0000/Raw Data/datasetId": b"chip-smoke",
+            "Input Data/infos/lane0000/Raw Data/display_mode": b"default",
+            "Input Data/infos/lane0000/Raw Data/filePath":
+                os.path.join(crop_store, "bmap").encode(),
+            "Input Data/infos/lane0000/Raw Data/location": b"FileSystem",
+            "Input Data/infos/lane0000/Raw Data/nickname": b"Input",
+            "workflowName": b"Carving", "ilastikVersion": b"1.3.0b2",
+            "currentApplet": 2, "preprocessing/StorageVersion": b"0.1",
+            "preprocessing/filter": 3, "preprocessing/sigma": 1.0,
+            "preprocessing/invert_watershed_source": False,
+            "preprocessing/watershed_source": b"filtered",
+            "carving/StorageVersion": b"0.1"}
+    with hdf5.File(out, "r") as f:
+        g = f["preprocessing/graph"]
+        graph_ok = bool(np.array_equal(g["graph"][()], want_graph))
+        weights_ok = bool(np.array_equal(g["edgeWeights"][()], weights))
+        nodes_ok = int(g.attrs["numNodes"]) == max_id + 1 and all(
+            g[k].shape == (max_id + 1,) and not g[k][()].any()
+            for k in ("nodeSeeds", "resultSegmentation"))
+        bad = [k for k, v in meta.items()
+               if np.asarray(f[k][()]).tolist() != np.asarray(v).tolist()]
+        groups_ok = "carving/objects" in f and "Input Data/local_data" in f
+    log(f"carving wall_s {wall} bytes {os.path.getsize(out)} nodes "
+        f"{max_id + 1} edges {len(uv)} graph {graph_ok} weights "
+        f"{weights_ok} numNodes/seeds {nodes_ok} metadata mismatches {bad} "
+        f"groups {groups_ok}")
+    if not (graph_ok and weights_ok and nodes_ok and groups_ok) or bad:
+        raise AssertionError("16c: the carving project differs")
+
+
+def knossos_path(root: str, crop_store: str):
+    """Phase 16d: a corner of the crop as raw Knossos cubes (zero-padded
+    to whole cubes), read through ``file_reader(".knossos")``."""
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    corner = read_dataset(crop_store, "bmap",
+                          tuple(slice(0, c) for c in KNOSSOS_CORNER))
+    bs = 128
+    grid = [-(-c // bs) for c in KNOSSOS_CORNER]
+    padded = np.zeros([g * bs for g in grid], "uint8")
+    padded[tuple(slice(0, c) for c in KNOSSOS_CORNER)] = corner
+    mag = os.path.join(root, "crop.knossos", "mag1")
+    for gz in range(grid[0]):
+        for gy in range(grid[1]):
+            for gx in range(grid[2]):
+                d = os.path.join(mag, f"x{gx:04d}", f"y{gy:04d}",
+                                 f"z{gz:04d}")
+                os.makedirs(d)
+                cube = padded[gz * bs:(gz + 1) * bs, gy * bs:(gy + 1) * bs,
+                              gx * bs:(gx + 1) * bs]
+                cube.tofile(os.path.join(
+                    d, f"crop_mag1_x{gx:04d}_y{gy:04d}_z{gz:04d}.raw"))
+    t0 = time.perf_counter()
+    with file_reader(os.path.dirname(mag), "r") as f:
+        ds = f["mag1"]
+        got = ds[tuple(slice(0, c) for c in KNOSSOS_CORNER)]
+        pad = ds[KNOSSOS_CORNER[0]:, :, :]
+        shape = ds.shape
+    read_s = time.perf_counter() - t0
+    ok = bool(np.array_equal(got, corner)) and not pad.any()
+    log(f"knossos cubes {int(np.prod(grid))} shape {list(shape)} read_s "
+        f"{read_s} corner == crop {ok}")
+    if not ok or shape != tuple(g * bs for g in grid):
+        raise AssertionError("16d: the Knossos read differs")
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -3685,6 +3892,14 @@ def main() -> int:
         log(f"phase 15 kernel launches {json.dumps(late)}")
         if late["minplus"] != 0:
             raise AssertionError("phase 15 launched the min-plus kernel")
+        # phase 16: the port's own storage formats and the carving export
+        h5_launches = phase("16a", h5_fused_path, root, crop_store)
+        kernels.reset_counts()
+        phase("16b", blosc_path, root, crop_store)
+        phase("16c", carving_path, root, crop_store)
+        phase("16d", knossos_path, root, crop_store)
+        if kernels.counts()["minplus"] != 0:
+            raise AssertionError("phases 16b-d launched the min-plus kernel")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3693,14 +3908,15 @@ def main() -> int:
                 "6": split["launches"][k.name],
                 **{f"12a-{m}": n for m, n in variant_launches.items()},
                 **{f"12b-{m}": n for m, n in crop_launches.items()},
-                **serve_launches, **filter_launches, "15": late["minplus"]}
+                **serve_launches, **filter_launches, "15": late["minplus"],
+                "16a": h5_launches}
     line = {"kernels": [{
         "name": k.name, "route": k.route, "source": k.source,
         "replaces": k.replaces,
         # the main paths' runs: the fused chain, the split chain, the fused
         # chain's hybrid and legacy executions, the watershed's options,
         # the ROI pipeline card against CPU and on the resident server, the
-        # filter-bank chain and the object fit
+        # filter-bank chain and the object fit, the fused chain on HDF5
         "launches": sum(by_phase.values()),
         "launches_by_phase": by_phase,
         "max_abs_err": max_err,

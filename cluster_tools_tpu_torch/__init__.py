@@ -24,8 +24,11 @@ per-object morphology, meshes and skeletons (``MorphologyWorkflow``,
 multisets and the Paintera and BigCat exports
 (``LabelMultisetWorkflow``, ``PainteraConversionWorkflow``,
 ``BigcatWorkflow``) — masking (``BlocksFromMask``, ``MinFilterMask``),
-the decomposition multicut (``DecompositionWorkflow``) and the debugging
-checks (``CheckSubGraphs``, ``CheckComponents``).  Plain PyTorch for the
+the decomposition multicut (``DecompositionWorkflow``), the debugging
+checks (``CheckSubGraphs``, ``CheckComponents``) and the random-forest
+edge classifier (``LearningWorkflow``; sklearn on the host).  HDF5,
+blosc-compressed zarr and N5, and Knossos volumes are read (and all but
+Knossos written) by the package's own storage code.  Plain PyTorch for the
 device code, a hand-written CUDA kernel where the JAX package had a Pallas
 kernel (``csrc/``), and the same task configs, container formats and outputs.
 Device tasks run on the global config's ``"device"`` (default

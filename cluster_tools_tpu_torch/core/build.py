@@ -59,6 +59,7 @@ def build_shared(name: str, sources: Sequence[str], compiler: List[str],
     from .runtime import ledger_add
 
     lib = library_path(name, sources, compiler)
+    # ctt-lint: disable=blocking-under-lock (the build IS the critical section: one compile of a library per process, later callers wait for it)
     with _lock:
         if lib in _built:
             EXEC_CACHE_STATS["hits"] += 1

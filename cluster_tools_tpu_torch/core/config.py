@@ -52,6 +52,24 @@ def default_global_config() -> Dict[str, Any]:
     }
 
 
+#: global-config keys that are read via ``.get()`` but deliberately NOT
+#: part of :func:`default_global_config` (written by tasks at runtime,
+#: not user-tunable).  The ``config-key`` lint pass accepts these too.
+EXTRA_GLOBAL_CONFIG_KEYS = frozenset({
+    # recorded by FusedProblemWorkflow so downstream solver tasks
+    # iterate the same slab grid
+    "sub_graph_block_shape",
+})
+
+
+def declared_global_config_keys() -> frozenset:
+    """Every key a ``global_config.get("...")`` access may legally use —
+    the schema the ``config-key`` static-analysis pass checks against."""
+    return frozenset(default_global_config()) \
+        | frozenset(default_task_resources()) \
+        | EXTRA_GLOBAL_CONFIG_KEYS
+
+
 def default_task_resources() -> Dict[str, Any]:
     """Executor resources every task config carries (reference:
     cluster_tasks.py:172-196 always includes threads_per_job/time_limit/

@@ -105,6 +105,7 @@ class stage:
         return self
 
     def __exit__(self, *exc):
+        # ctt-lint: disable=stage-registry (framework forwarder: the literal was already registry-checked at the stage(...) call site)
         stage_add(self.name, time.perf_counter() - self._t0)
         return False
 
@@ -745,7 +746,7 @@ class _InlineExecutor:
                 lock = threading.Lock()
 
                 def _log(msg, _lf=lf, _lock=lock):
-                    with _lock:
+                    with _lock:  # ctt-lint: disable=blocking-under-lock (per-job log print is the critical section: the lock serializes interleaved worker lines)
                         print(f"{datetime.now().isoformat()}: {msg}", file=_lf, flush=True)
 
                 try:
@@ -768,7 +769,7 @@ class _ThreadExecutor:
                 lock = threading.Lock()
 
                 def _log(msg, _lf=lf, _lock=lock):
-                    with _lock:
+                    with _lock:  # ctt-lint: disable=blocking-under-lock (per-job log print is the critical section: the lock serializes interleaved worker lines)
                         print(f"{datetime.now().isoformat()}: {msg}", file=_lf, flush=True)
 
                 try:

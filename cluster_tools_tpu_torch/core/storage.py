@@ -1,24 +1,30 @@
-"""Chunked volume storage (L0): N5 and zarr v2 chunks with numpy and zlib.
+"""Chunked volume storage (L0): N5, zarr v2, HDF5 and Knossos.
 
 Re-specification of the reference's storage layer
 (cluster_tools/utils/volume_utils.py:33-43 `file_reader` dispatching to
 z5py/h5py; datasets are numpy-sliceable, support `require_dataset`,
 per-chunk reads/writes and parallel IO).  The chunk engine is written here
-with numpy and the standard library (``zlib`` / ``gzip``), so the package
-needs no storage library.  It reads and writes the on-disk formats that
-tensorstore writes:
+with numpy, the standard library (``zlib`` / ``gzip``) and the package's
+own blosc codecs (``core/blosc.py``), so the package needs no storage
+library.  It reads and writes the on-disk formats that tensorstore writes:
 
 * N5: ``attributes.json`` metadata in column-major axis order; each chunk
   is a big-endian header (mode, ndim, chunk dims, column-major) followed by
-  the big-endian elements, ``raw`` or ``gzip`` compressed.  Edge chunks are
-  written at the full block size (tensorstore's convention) and read at
-  whatever size their header states (z5/n5-java truncate them).
-* zarr v2: ``.zarray`` metadata, C order, ``null`` or ``zlib``
+  the big-endian elements, ``raw``, ``gzip`` or (read only) ``blosc``
+  compressed.  Edge chunks are written at the full block size
+  (tensorstore's convention) and read at whatever size their header states
+  (z5/n5-java truncate them).  ``compression="blosc"`` creates raw chunks,
+  as the JAX package does.
+* zarr v2: ``.zarray`` metadata, C order, ``null``, ``zlib`` or ``blosc``
   compressor, full-size edge chunks.
+
+HDF5 files (``.h5``/``.hdf``/``.hdf5``) go through the package's own
+reader and writer (``core/hdf5.py``), Knossos pyramids (read only) through
+``utils/knossos.py``.
 
 Missing chunks read as the fill value 0.  Chunk writes are atomic (a
 temporary file, then a rename); a write that does not cover a whole chunk
-is a read-modify-write under a per-chunk lock.  HDF5 and blosc raise.
+is a read-modify-write under a per-chunk lock.
 
 Irregular ("varlen") per-block results — cut-edge lists, sub-solutions —
 use a dedicated :class:`VarlenDataset` of per-chunk flat files instead of
@@ -41,10 +47,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import blosc, hdf5
 from .config import write_config
-
-#: ROADMAP item that brings the container formats this engine refuses
-_LATER_FORMATS = "HDF5 and blosc storage are not ported yet (ROADMAP A16)"
 
 _N5_DTYPES = ("uint8", "uint16", "uint32", "uint64", "int8", "int16",
               "int32", "int64", "float32", "float64")
@@ -90,7 +94,7 @@ class AttrsView:
     def __setitem__(self, key: str, value: Any) -> None:
         if self._guard and key in self._N5_RESERVED:
             raise KeyError(f"{key} is reserved N5 metadata")
-        with self._lock:
+        with self._lock:  # ctt-lint: disable=blocking-under-lock (the attrs-file load-modify-store IS the critical section; the lock exists to serialize exactly this IO)
             data = self._load()
             data[key] = value
             self._store(data)
@@ -102,7 +106,7 @@ class AttrsView:
         return self._load().get(key, default)
 
     def update(self, other: Dict[str, Any]) -> None:
-        with self._lock:
+        with self._lock:  # ctt-lint: disable=blocking-under-lock (the attrs-file load-modify-store IS the critical section; the lock exists to serialize exactly this IO)
             data = self._load()
             data.update(other)
             self._store(data)
@@ -129,9 +133,9 @@ class _N5Codec:
     def __init__(self, meta: Dict[str, Any]):
         comp = meta.get("compression", {"type": "raw"})
         self.kind = comp.get("type", "raw")
-        if self.kind not in ("raw", "gzip"):
+        if self.kind not in ("raw", "gzip", "blosc"):
             raise NotImplementedError(
-                f"N5 compression {self.kind!r}: {_LATER_FORMATS}")
+                f"N5 compression {self.kind!r} is not supported")
         self.use_zlib = bool(comp.get("useZlib", False))
         self.level = int(comp.get("level", 1))
         if self.level < 0:
@@ -148,12 +152,17 @@ class _N5Codec:
         if self.kind == "gzip":
             body = zlib.decompress(body) if self.use_zlib else \
                 gzip.decompress(body)
+        elif self.kind == "blosc":
+            body = blosc.decompress(body)
         arr = np.frombuffer(body, self.be, count=int(np.prod(dims)))
         return arr.reshape(dims[::-1]).astype(self.dtype)
 
     def encode(self, arr: np.ndarray) -> bytes:
         head = struct.pack(f">HH{arr.ndim}I", 0, arr.ndim, *arr.shape[::-1])
         body = np.ascontiguousarray(arr, dtype=self.be).tobytes()
+        if self.kind == "blosc":
+            raise NotImplementedError("writing N5 blosc chunks is not "
+                                      "supported (creation writes raw)")
         if self.kind == "gzip":
             body = zlib.compress(body, self.level) if self.use_zlib else \
                 gzip.compress(body, compresslevel=self.level, mtime=0)
@@ -162,7 +171,7 @@ class _N5Codec:
 
 class _ZarrCodec:
     """zarr v2 chunk format: C-order elements in the metadata's byte order,
-    ``null`` or ``zlib``/``gzip`` compressed."""
+    ``null``, ``zlib``/``gzip`` or ``blosc`` compressed."""
 
     def __init__(self, meta: Dict[str, Any]):
         if meta.get("order", "C") != "C":
@@ -171,10 +180,11 @@ class _ZarrCodec:
             raise NotImplementedError("zarr filters are not supported")
         comp = meta.get("compressor")
         self.kind = None if comp is None else comp.get("id")
-        if self.kind not in (None, "zlib", "gzip"):
+        if self.kind not in (None, "zlib", "gzip", "blosc"):
             raise NotImplementedError(
-                f"zarr compressor {self.kind!r}: {_LATER_FORMATS}")
+                f"zarr compressor {self.kind!r} is not supported")
         self.level = int((comp or {}).get("level", 1))
+        self.blosc = comp if self.kind == "blosc" else None
         self.disk = np.dtype(meta["dtype"])
         self.dtype = self.disk.newbyteorder("=")
         self.chunks = tuple(meta["chunks"])
@@ -184,6 +194,8 @@ class _ZarrCodec:
             raw = zlib.decompress(raw)
         elif self.kind == "gzip":
             raw = gzip.decompress(raw)
+        elif self.kind == "blosc":
+            raw = blosc.decompress(raw)
         arr = np.frombuffer(raw, self.disk).reshape(self.chunks)
         return arr.astype(self.dtype)
 
@@ -193,6 +205,11 @@ class _ZarrCodec:
             return zlib.compress(body, self.level)
         if self.kind == "gzip":
             return gzip.compress(body, compresslevel=self.level, mtime=0)
+        if self.kind == "blosc":
+            return blosc.compress(body, self.disk.itemsize,
+                                  clevel=int(self.blosc.get("clevel", 5)),
+                                  shuffle=int(self.blosc.get("shuffle", 1)),
+                                  cname=self.blosc.get("cname", "lz4"))
         return body
 
 
@@ -502,10 +519,13 @@ class ZarrFile(_Container):
         return "shape" in meta and "chunks" in meta
 
     def _create_meta(self, shape, chunks, dtype, compression):
-        if compression in ("blosc", "lz4"):
-            raise NotImplementedError(_LATER_FORMATS)
-        compressor = ({"id": "zlib", "level": 1}
-                      if compression in ("gzip", "zlib") else None)
+        compressor = None
+        if compression in ("gzip", "zlib"):
+            compressor = {"id": "zlib", "level": 1}
+        elif compression in ("blosc", "lz4"):
+            # zarr-python's default and the JAX package's blosc settings
+            compressor = {"blocksize": 0, "clevel": 5, "cname": "lz4",
+                          "id": "blosc", "shuffle": 1}
         return {"zarr_format": 2, "shape": list(shape),
                 "chunks": list(chunks), "dtype": dtype.newbyteorder("<").str,
                 "compressor": compressor, "fill_value": 0, "filters": None,
@@ -527,14 +547,120 @@ class N5File(_Container):
     def _create_meta(self, shape, chunks, dtype, compression):
         if dtype.name not in _N5_DTYPES:
             raise ValueError(f"dtype {dtype.name} not supported by N5")
-        if compression in ("blosc", "lz4"):
-            raise NotImplementedError(_LATER_FORMATS)
+        # as the JAX package: only gzip/zlib compress, anything else
+        # (blosc included) writes raw chunks
         comp = ({"type": "gzip", "level": 1, "useZlib": False}
                 if compression in ("gzip", "zlib") else {"type": "raw"})
         # N5 metadata is column-major: numpy-order shapes are reversed
         return {"dimensions": list(shape)[::-1],
                 "blockSize": list(chunks)[::-1],
                 "dataType": dtype.name, "compression": comp}
+
+
+# ---------------------------------------------------------------------------
+# HDF5 (core/hdf5.py)
+# ---------------------------------------------------------------------------
+
+class _H5Dataset:
+    """The :class:`Dataset` surface over an HDF5 dataset (the JAX
+    package's adapter of h5py datasets)."""
+
+    def __init__(self, ds: hdf5.Dataset):
+        self._ds = ds
+        self.n_threads = 1
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self._ds.shape)
+
+    @property
+    def ndim(self) -> int:
+        return self._ds.ndim
+
+    @property
+    def dtype(self) -> np.dtype:
+        return np.dtype(self._ds.dtype)
+
+    @property
+    def chunks(self) -> Tuple[int, ...]:
+        return tuple(self._ds.chunks) if self._ds.chunks else \
+            tuple(self._ds.shape)
+
+    @property
+    def attrs(self):
+        return self._ds.attrs
+
+    def __getitem__(self, bb):
+        return self._ds[bb]
+
+    def __setitem__(self, bb, value):
+        self._ds[bb] = value
+
+    def find_max(self) -> float:
+        return float(np.max(self._ds[...]))
+
+
+class H5File:
+    """An ``.h5`` container with the N5/zarr containers' surface: groups
+    are :mod:`core.hdf5` groups, datasets :class:`_H5Dataset`."""
+
+    flavor = "h5"
+
+    def __init__(self, path: str, mode: str = "a"):
+        self.path = path
+        self._f = hdf5.File(path, mode)
+        self.attrs = self._f.attrs
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._f
+
+    def __getitem__(self, key: str):
+        obj = self._f[key]
+        if isinstance(obj, hdf5.Dataset):
+            return _H5Dataset(obj)
+        return obj
+
+    def require_group(self, key: str):
+        return self._f.require_group(key)
+
+    create_group = require_group
+
+    def require_dataset(self, key: str,
+                        shape: Optional[Sequence[int]] = None,
+                        chunks: Optional[Sequence[int]] = None,
+                        dtype=None, compression: Optional[str] = None,
+                        data: Optional[np.ndarray] = None,
+                        **_ignored: Any) -> _H5Dataset:
+        """Create-if-absent; ``chunks`` defaults to the whole shape,
+        ``compression="raw"`` means none, ``data=`` fills the dataset only
+        when it is created."""
+        if compression == "raw":
+            compression = None
+        if data is not None:
+            data = np.asarray(data)
+            shape = data.shape if shape is None else shape
+            dtype = data.dtype if dtype is None else dtype
+        if shape is None or dtype is None:
+            raise TypeError("require_dataset needs shape+dtype or data=")
+        chunks = tuple(shape) if chunks is None else tuple(chunks)
+        exists = key in self._f
+        ds = self._f.require_dataset(key, shape=tuple(shape), dtype=dtype,
+                                     chunks=chunks, compression=compression)
+        if data is not None and not exists:
+            ds[...] = data
+        return _H5Dataset(ds)
+
+    create_dataset = require_dataset
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -593,17 +719,23 @@ class VarlenDataset:
 HDF5_EXTS = {".h5", ".hdf", ".hdf5"}
 ZARR_EXTS = {".zarr", ".zr"}
 N5_EXTS = {".n5"}
+KNOSSOS_EXTS = {".knossos", ".k"}
 
 
 def file_reader(path: str, mode: str = "a"):
-    """Open a container by extension (reference: utils/volume_utils.py:33-43)."""
+    """Open a container by extension (reference: utils/volume_utils.py:33-43,
+    incl. the read-only Knossos pyramid dispatch)."""
     ext = os.path.splitext(path)[1].lower()
     if ext in N5_EXTS:
         return N5File(path, mode)
     if ext in ZARR_EXTS:
         return ZarrFile(path, mode)
     if ext in HDF5_EXTS:
-        raise NotImplementedError(f"{path}: {_LATER_FORMATS}")
+        return H5File(path, mode)
+    if ext in KNOSSOS_EXTS:
+        from ..utils.knossos import KnossosFile
+
+        return KnossosFile(path, mode="r")
     raise ValueError(f"unsupported container extension: {path}")
 
 

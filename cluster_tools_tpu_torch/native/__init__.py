@@ -1,10 +1,12 @@
 """First-party native kernels (C++), loaded via ctypes.
 
 Replaces the reference's external pybind11 wheels for combinatorial work
-(nifty solvers/ufd — SURVEY §2.3).  The shared library is compiled with g++
-from ``src/solvers.cpp`` the first time a process needs it (the C API is
-flat arrays; see ``core/build.py``).  Without a compiler the solvers raise:
-the package has no slower stand-in for them.
+(nifty solvers/ufd — SURVEY §2.3) and the blosc library's codecs.  Two
+shared libraries are compiled with g++ the first time a process needs
+them (the C API is flat arrays; see ``core/build.py``): the solvers from
+``src/solvers.cpp`` and the blosc streams' codecs (LZ4, BloscLZ, byte
+shuffle; framed by ``core/blosc.py``) from ``src/codecs.cpp``.  Without a
+compiler they raise: the package has no slower stand-in for them.
 """
 
 from __future__ import annotations
@@ -20,14 +22,17 @@ from ..core.build import build_shared
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
                     "solvers.cpp")
+_CODECS_SRC = os.path.join(os.path.dirname(_SRC), "codecs.cpp")
 _CMD = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_codecs: Optional[ctypes.CDLL] = None
 
 
 def library() -> str:
     """The solver library's path, built at first use (each call resolves
     through ``core/build.py``'s counted cache)."""
+    # ctt-lint: disable=metric-registry (a library's file name, not a metric)
     return build_shared("ctt_torch_native", [_SRC], _CMD)
 
 
@@ -77,6 +82,32 @@ def load() -> ctypes.CDLL:
         lib.skeletonize_3d.restype = None
         _lib = lib
         return _lib
+
+
+def codecs() -> ctypes.CDLL:
+    """Build (at first use) and load the codec library.  Its functions
+    take raw addresses (``ndarray.ctypes.data``) and byte counts; ctypes
+    releases the GIL for each call."""
+    global _codecs
+    with _lock:
+        if _codecs is not None:
+            return _codecs
+        # ctt-lint: disable=metric-registry (a library's file name, not a metric)
+        lib = ctypes.CDLL(build_shared("ctt_torch_codecs", [_CODECS_SRC],
+                                       _CMD))
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        for name in ("lz4_compress", "lz4_decompress", "blosclz_decompress"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, i64, ptr, i64]
+            fn.restype = i64
+        lib.lz4_bound.argtypes = [i64]
+        lib.lz4_bound.restype = i64
+        for name in ("byte_shuffle", "byte_unshuffle"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, i64, i64, ptr]
+            fn.restype = None
+        _codecs = lib
+        return _codecs
 
 
 def _as_uv(uv_ids: np.ndarray) -> np.ndarray:

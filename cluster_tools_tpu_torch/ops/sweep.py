@@ -351,6 +351,7 @@ def sweep_watershed(
     uniq = np.unique(seeds_np)
     uniq = uniq[uniq > 0]
     k = len(uniq)
+    # ctt-lint: disable=dtype-int32 (this IS the sanctioned compaction: searchsorted ranks are < k <= block voxel count, never raw global ids)
     dense = np.searchsorted(uniq, seeds_np).astype("int32") + 1
     dense[seeds_np <= 0] = 0
     dense = torch.from_numpy(dense).to(dev)

@@ -8,7 +8,7 @@ affinities, multiscale pyramids and object fitting, region features and
 the post-processing toolbox; the tools run after a segmentation
 (morphology, meshes, skeletons, label multisets and the Paintera and
 BigCat exports), masking, the decomposition multicut and the debugging
-checks.  ``__all__`` lists the JAX package's exports that are ported;
+checks, and the random-forest edge classifier.  ``__all__`` lists the JAX package's exports that are ported;
 ``EvaluationWorkflow`` and ``NodeLabelWorkflow``, which the JAX package
 leaves out of its exports, are importable here all the same."""
 
@@ -22,6 +22,7 @@ from .evaluation import EvaluationWorkflow
 from .graph import GraphWorkflow
 from .inference import InferenceTask
 from .label_multisets import LabelMultisetWorkflow
+from .learning import LearningWorkflow
 from .lifted_features import LiftedFeaturesFromNodeLabelsWorkflow
 from .lifted_multicut import LiftedMulticutWorkflow
 from .masking import BlocksFromMask, MinFilterMask
@@ -58,6 +59,7 @@ __all__ = [
     "FilterByThresholdWorkflow", "FilterLabelsWorkflow",
     "FilterOrphansWorkflow", "GraphWorkflow", "ImageFilterTask",
     "InferenceTask", "InsertAffinities", "LabelMultisetWorkflow",
+    "LearningWorkflow",
     "LiftedFeaturesFromNodeLabelsWorkflow",
     "LiftedMulticutSegmentationWorkflow", "LiftedMulticutWorkflow",
     "MeshWorkflow", "MinFilterMask", "MorphologyWorkflow",

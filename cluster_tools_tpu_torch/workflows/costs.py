@@ -197,9 +197,15 @@ class EdgeCostsWorkflow(Task):
         dep = self.dependency
         input_path, input_key = self.features_path, self.features_key
         if self.rf_path:
-            raise NotImplementedError(
-                "random-forest edge probabilities (rf_path) are not ported "
-                "yet (ROADMAP A16)")
+            from .learning import RFPredict
+
+            input_key = "rf_probs"
+            dep = RFPredict(
+                rf_path=self.rf_path, features_path=self.features_path,
+                features_key=self.features_key,
+                output_path=self.features_path, output_key=input_key,
+                dependency=dep, **common)
+            input_path = self.features_path
         return ProbsToCosts(
             input_path=input_path, input_key=input_key,
             output_path=self.output_path, output_key=self.output_key,

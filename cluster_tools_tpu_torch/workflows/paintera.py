@@ -10,8 +10,8 @@ label_block_mapping.py:103-117) and the ``bigcat/`` package
 label downsampling (``DownscaleTask``) runs on the global config's device;
 every other step runs on the host, as in the JAX package.  The proofreading
 subsystem (``edits/``) uses the label-to-block lookup and the
-fragment-segment assignment helpers.  The BigCat export writes N5 or zarr:
-an HDF5 target waits for the HDF5 writer (ROADMAP A16).
+fragment-segment assignment helpers.  The BigCat export writes HDF5 (the
+reference's format, through ``core/hdf5.py``), N5 or zarr.
 
 Layout produced under ``<path>/<label_group>``:
 
@@ -430,8 +430,8 @@ class PainteraConversionWorkflow(Task):
 
 class BigcatWorkflow(Task):
     """Legacy BigCat export: fragment volume + fragment-segment pairs +
-    offset attrs (reference: bigcat/bigcat_workflow.py:13-115), into an N5
-    or zarr container."""
+    offset attrs (reference: bigcat/bigcat_workflow.py:13-115), into an
+    HDF5, N5 or zarr container."""
 
     def __init__(self, input_path: str, input_key: str, output_path: str,
                  assignment_path: str, assignment_key: Optional[str],

@@ -15,7 +15,8 @@ filter features (features/image_filter.py:24); both are first-party here:
   written as per-class probability channels.  sklearn is imported where
   a job runs, so a host without it can import the module.
 * ``WriteCarving`` — the graph and edge weights as an ilastik carving
-  project (HDF5 through h5py, imported in ``run``).
+  project, an HDF5 file written by the package's own writer
+  (``core/hdf5.py``: no h5py).
 """
 
 from __future__ import annotations
@@ -387,8 +388,7 @@ class WriteCarving(Task):
     def run(self):
         import time
 
-        import h5py
-
+        from ..core import hdf5
         from ..core.graph import load_graph
 
         _, edges, attrs = load_graph(self.graph_path, self.graph_key)
@@ -406,7 +406,7 @@ class WriteCarving(Task):
 
         # mode 'w' truncates: a retry after a partial previous run must not
         # trip over half-written groups (the export is single-writer)
-        with h5py.File(self.output_path, "w") as f:
+        with hdf5.File(self.output_path, "w") as f:
             g = f.create_group("preprocessing/graph")
             g.create_dataset("graph", data=serialization,
                              compression="gzip")

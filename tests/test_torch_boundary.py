@@ -2,9 +2,10 @@
 
 The port (``cluster_tools_tpu_torch``) and its scripts for the card
 (``chip_smoke.py``, ``chip_profile.py``, ``chip_edt_compare.py``) import
-torch and never jax or the JAX package; the card is the default device, and a
-run that asks for it on a host without one raises instead of carrying on
-on the CPU."""
+torch and never jax or the JAX package, nor h5py, tensorstore or
+numcodecs (the port's storage formats are its own); the card is the
+default device, and a run that asks for it on a host without one raises
+instead of carrying on on the CPU."""
 
 import ast
 import os
@@ -56,6 +57,41 @@ def test_no_source_imports_jax_or_the_jax_package():
                 if top in ("jax", "jaxlib", "cluster_tools_tpu", "flax"):
                     bad.append((os.path.relpath(path, ROOT), name))
     assert not bad, bad
+
+
+def test_no_source_imports_a_storage_library():
+    """No source of the port imports h5py, tensorstore or numcodecs, at
+    module level or inside a function, and importing every module loads
+    none of them."""
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, ROOT), n) for n in names
+                    if n.split(".")[0] in ("h5py", "tensorstore",
+                                           "numcodecs")]
+    assert not bad, bad
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('h5py', 'tensorstore', 'numcodecs', 'sklearn', 'imageio'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok", res.stdout
 
 
 def test_importing_the_port_loads_no_jax():
@@ -273,15 +309,14 @@ def test_new_device_tasks_raise_without_a_card(tmp_path, which):
 
 @pytest.mark.parametrize("task,task_cfg,kw,match", [
     ("watershed", {}, {"target": "mesh"}, "ROADMAP A14"),
-    ("edge_costs", {}, {"rf_path": "rf.pkl"}, "ROADMAP A16"),
 ])
 def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
                                             match):
     """The split chain's options that are still to be ported raise, naming
     their ROADMAP item (the filter-bank edge features, A13, are ported:
-    ``tests/test_torch_edge_filters.py``)."""
+    ``tests/test_torch_edge_filters.py``; the random-forest edge
+    probabilities, A16: ``test_edge_costs_rf_path_runs_rf_predict``)."""
     from cluster_tools_tpu_torch.core.config import ConfigDir
-    from cluster_tools_tpu_torch.workflows.costs import EdgeCostsWorkflow
     from cluster_tools_tpu_torch.workflows.watershed import WatershedTask
 
     cfg = str(tmp_path / "cfg")
@@ -290,13 +325,31 @@ def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
     ConfigDir(cfg).write_task_config(task, task_cfg)
     common = dict(tmp_folder=str(tmp_path / "tmp"), config_dir=cfg, **kw)
     with pytest.raises(NotImplementedError, match=match):
-        if task == "watershed":
-            WatershedTask(input_path="a.n5", input_key="x",
-                          output_path="a.n5", output_key="w", **common)
-        else:
-            EdgeCostsWorkflow(features_path="p.n5", features_key="f",
-                              output_path="p.n5", output_key="c",
-                              graph_path="p.n5", **common).requires()
+        WatershedTask(input_path="a.n5", input_key="x",
+                      output_path="a.n5", output_key="w", **common)
+
+
+def test_edge_costs_rf_path_runs_rf_predict(tmp_path):
+    """``EdgeCostsWorkflow(rf_path=...)`` puts the random forest's
+    prediction before the cost transform, as the JAX package does: its
+    dependency is an ``RFPredict`` into the features' container under
+    ``rf_probs`` (``tests/test_torch_learning.py`` runs it)."""
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+    from cluster_tools_tpu_torch.workflows.costs import EdgeCostsWorkflow
+    from cluster_tools_tpu_torch.workflows.learning import RFPredict
+
+    cfg = str(tmp_path / "cfg")
+    ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8],
+                                        "device": "cpu"})
+    task = EdgeCostsWorkflow(features_path="p.n5", features_key="f",
+                             output_path="p.n5", output_key="c",
+                             graph_path="p.n5", rf_path="rf.pkl",
+                             tmp_folder=str(tmp_path / "tmp"),
+                             config_dir=cfg).requires()
+    assert (task.input_path, task.input_key) == ("p.n5", "rf_probs")
+    rf = task.dependency
+    assert isinstance(rf, RFPredict) and rf.rf_path == "rf.pkl"
+    assert (rf.output_path, rf.output_key) == ("p.n5", "rf_probs")
 
 
 def test_no_raise_names_the_filter_bank_item():
@@ -408,5 +461,38 @@ def test_post_segmentation_modules_are_held_to_the_rule():
     for path in _sources():
         with open(path) as f:
             if "A17b" in f.read():
+                bad.append(os.path.relpath(path, ROOT))
+    assert not bad, bad
+
+
+def test_storage_and_host_extras_are_held_to_the_rule():
+    """The hand-written HDF5 and blosc, the Knossos reader, the random
+    forest's workflows and the port's lint are among the modules the
+    import checks walk; the port exports the JAX package's names of
+    them (its ``__all__`` is now the JAX package's), and no source of the
+    port names their ROADMAP item (A16) as still to come."""
+    import cluster_tools_tpu
+    import cluster_tools_tpu.utils
+    import cluster_tools_tpu_torch as ctp
+    import cluster_tools_tpu_torch.utils
+
+    mods = set(_port_modules())
+    for name in ("core.hdf5", "core.blosc", "utils.knossos",
+                 "workflows.learning", "analysis", "analysis.base",
+                 "analysis.sources", "analysis.registry",
+                 "analysis.config_keys", "analysis.locks",
+                 "analysis.atomic_write", "analysis.dtype_discipline",
+                 "analysis.boundary", "analysis.fallback",
+                 "analysis.__main__"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+    assert sorted(ctp.__all__) == sorted(cluster_tools_tpu.__all__)
+    assert ctp.LearningWorkflow.__module__ == \
+        "cluster_tools_tpu_torch.workflows.learning"
+    assert sorted(cluster_tools_tpu_torch.utils.__all__) == \
+        sorted(cluster_tools_tpu.utils.__all__)
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            if "ROADMAP A16" in f.read():
                 bad.append(os.path.relpath(path, ROOT))
     assert not bad, bad

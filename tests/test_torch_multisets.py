@@ -8,10 +8,9 @@ label-to-block lookup, the fragment-segment pairs, the label pyramid (its
 ``DownscaleTask`` runs on the port's CPU device here) and the attribute
 dicts (the lookup's ``root``, an absolute path, aside).  The tests of
 ``tests/test_downscaling.py`` for these modules run on the port here,
-each beside the JAX package's result; the JAX package's BigCat test
-writes HDF5, which the port cannot yet (ROADMAP A16), so both packages
-export to N5 here.  Containers written by one package are read by the
-other."""
+each beside the JAX package's result; the BigCat export runs into HDF5
+(the JAX package's test's format), N5 and zarr.  Containers written by
+one package are read by the other."""
 
 import os
 from collections import Counter
@@ -398,9 +397,8 @@ def _bigcat(env, seg, assignments, out_name):
 
 @pytest.mark.parametrize("out_name", ["bigcat.n5", "bigcat.zarr"])
 def test_bigcat_export_matches_jax(tmp_path, out_name):
-    """The JAX package's test_bigcat_export, into N5 and zarr (the JAX
-    package's test writes HDF5, which the port writes once A16 lands):
-    the fragments, the lookup table and the attributes equal the JAX
+    """The JAX package's test_bigcat_export, into N5 and zarr (its HDF5
+    case: ``test_bigcat_export_to_hdf5_matches_jax``): the fragments, the lookup table and the attributes equal the JAX
     package's."""
     seg = np.ones((8, 8, 8), "uint64")
     seg[:, 4:, :] = 2
@@ -420,12 +418,32 @@ def test_bigcat_export_matches_jax(tmp_path, out_name):
     assert ds_attrs["resolution"] == [40.0, 4.0, 4.0]
 
 
-def test_bigcat_export_to_hdf5_waits_for_the_writer(tmp_path):
-    """The port's ``file_reader`` has no HDF5 writer yet: an ``.h5``
-    target raises, naming its ROADMAP item."""
-    from cluster_tools_tpu_torch.core.workflow import BuildError
-
+def test_bigcat_export_to_hdf5_matches_jax(tmp_path):
+    """The JAX package's test_bigcat_export: into HDF5, written by the
+    port's own writer (``core/hdf5.py``) and by h5py in the JAX package.
+    The fragments, the lookup table and the attributes (values and
+    dtypes) equal the JAX package's, read through either package."""
     seg = np.ones((8, 8, 8), "uint64")
-    env = _env("torch", str(tmp_path))
-    with pytest.raises(BuildError, match="ROADMAP A16"):
-        _bigcat(env, seg, np.array([0, 5], "uint64"), "bigcat.h5")
+    seg[:, 4:, :] = 2
+    assignments = np.array([0, 5, 5], "uint64")
+    jax_r, port_r = _both(tmp_path,
+                          lambda e: _bigcat(e, seg, assignments, "bigcat.h5"))
+    for a, b in zip(jax_r, port_r):
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b)
+            for k in a:
+                assert np.asarray(b[k]).dtype == np.asarray(a[k]).dtype, k
+                np.testing.assert_array_equal(b[k], a[k])
+        else:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(b, a)
+    frags, lut, ds_attrs, root_attrs = port_r
+    np.testing.assert_array_equal(frags, seg)
+    assert lut.shape[0] == 2 and root_attrs["next_id"] == int(lut.max()) + 1
+    np.testing.assert_array_equal(ds_attrs["resolution"], [40.0, 4.0, 4.0])
+    import h5py
+
+    with h5py.File(str(tmp_path / "torch" / "bigcat.h5"), "r") as f:
+        np.testing.assert_array_equal(f["volumes/labels/fragments"][:], seg)
+        np.testing.assert_array_equal(f["fragment_segment_lut"][:], lut)
+        assert f.attrs["next_id"] == root_attrs["next_id"]

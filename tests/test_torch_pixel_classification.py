@@ -9,7 +9,8 @@ before each build, so the forests see the same draws; a prediction can
 still flip where a feature lands on a split threshold, so the classifier
 is gated by the share of voxels whose argmax differs from the JAX
 package's (0 on these inputs, gate 1 %).  The classifier needs sklearn
-and the carving export h5py, both on the host, as in the JAX package."""
+on the host, as in the JAX package; the carving export writes HDF5 with
+the port's own writer (no h5py)."""
 
 import os
 
@@ -159,8 +160,6 @@ def test_predict_rejects_classes_beyond_n_classes(tmp_path):
 
 
 def _carving(pkg, root):
-    import h5py
-
     M, P, path, common = _setup(pkg, root, {})
     if pkg == "jax":
         from cluster_tools_tpu.core.graph import save_graph
@@ -181,28 +180,87 @@ def _carving(pkg, root):
                           output_path=out, raw_path=path, raw_key="raw",
                           uid="test-uid", tmp_folder=common["tmp_folder"])
     assert M.build([task], raise_on_failure=True)
-    with h5py.File(out, "r") as f:
-        return {"graph": f["preprocessing/graph/graph"][:],
-                "weights": f["preprocessing/graph/edgeWeights"][:],
-                "seeds": f["preprocessing/graph/nodeSeeds"][:],
-                "num_nodes": f["preprocessing/graph"].attrs["numNodes"],
-                "workflow": f["workflowName"][()],
-                "objects": "carving/objects" in f,
-                "uid": f["Input Data/infos/lane0000/Raw Data/datasetId"][()]}
+    return out
 
 
-def test_write_carving_matches_jax(tmp_path):
-    """The carving project of a graph with a missing node id (4): the
-    serialization, weights and metadata equal the JAX package's."""
+def _h5_contents(path, reader):
+    """Every dataset (value, dtype, shape, string type) and every
+    attribute of an HDF5 file, by path, through h5py or the port's
+    reader."""
+    out = {}
+
+    def visit(name, obj):
+        for k in obj.attrs.keys():
+            v = obj.attrs[k]
+            out[f"{name}@{k}"] = (v, np.asarray(v).dtype)
+        if hasattr(obj, "keys"):
+            out[name + "/"] = ("group",)
+            for k in obj.keys():
+                visit(f"{name}/{k}".lstrip("/"), obj[k])
+        else:
+            string = None
+            if reader == "h5py":
+                import h5py
+                info = h5py.check_string_dtype(obj.dtype)
+                string = info and (info.encoding, info.length)
+            out[name] = (obj[()], obj.dtype, obj.shape, string)
+
+    if reader == "h5py":
+        import h5py
+        with h5py.File(path, "r") as f:
+            visit("", f)
+    else:
+        from cluster_tools_tpu_torch.core import hdf5
+        with hdf5.File(path, "r") as f:
+            visit("", f)
+    return out
+
+
+def _same_entry(a, b, key):
+    for x, y in zip(a, b):
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            x, y = np.asarray(x), np.asarray(y)
+            assert x.dtype == y.dtype and x.shape == y.shape, key
+            assert x.tolist() == y.tolist(), key
+        else:
+            assert x == y and type(x) is type(y), (key, x, y)
+
+
+def test_write_carving_matches_jax(tmp_path, monkeypatch):
+    """The carving project of a graph with a missing node id (4): every
+    dataset and attribute but the write time equals the JAX package's, in
+    value, dtype, shape and string type, read through h5py and through
+    the port's reader.  The port's export runs with h5py unimportable."""
+    import sys
+
     jx = _carving("jax", str(tmp_path / "jax"))
-    pt = _carving("torch", str(tmp_path / "torch"))
-    for key in jx:
-        np.testing.assert_array_equal(pt[key], jx[key])
-    ser = pt["graph"]
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        pt = _carving("torch", str(tmp_path / "torch"))
+    want = _h5_contents(jx, "h5py")
+    got = _h5_contents(pt, "h5py")
+    port_read = _h5_contents(pt, "port")
+    assert sorted(got) == sorted(want) and sorted(port_read) == sorted(want)
+    assert len(want) == 35  # 24 datasets, 1 attribute, 10 groups
+    for key in want:
+        if key == "time":
+            continue
+        if key.endswith("filePath"):  # the raw data's path, in each root
+            for entry in (got[key], port_read[key]):
+                assert entry[0] == want[key][0].replace(b"/jax/", b"/torch/")
+                assert entry[1] == want[key][1]
+            continue
+        _same_entry(got[key], want[key], key)
+        _same_entry(port_read[key][:3], want[key][:3], key)
+    ser = got["preprocessing/graph/graph"][0]
     assert list(ser[:4]) == [5, 5, 5, 4]
-    assert pt["num_nodes"] == 6 and pt["workflow"] == b"Carving"
-    assert pt["objects"] and pt["uid"] == b"test-uid"
-    np.testing.assert_allclose(pt["weights"],
+    assert got["preprocessing/graph@numNodes"][0] == 6
+    assert got["workflowName"][0] == b"Carving"
+    assert "carving/objects/" in got and "Input Data/local_data/" in got
+    assert got["Input Data/infos/lane0000/Raw Data/datasetId"][0] == \
+        b"test-uid"
+    assert got["preprocessing/StorageVersion"][3] == ("utf-8", None)
+    np.testing.assert_allclose(got["preprocessing/graph/edgeWeights"][0],
                                np.array([0.1, 0.5, 0.9, 1.0, 0.3]) * 255.0)
 
 

@@ -1,7 +1,8 @@
-"""The port's chunk engine (numpy + zlib/gzip) against the JAX package's
-tensorstore-backed storage, in both directions: N5 raw/gzip and zarr
-null/zlib, uint8/uint64/float32, ragged edge chunks, partial (read-
-modify-write) chunk writes and missing chunks.  Exact."""
+"""The port's chunk engine (numpy + zlib/gzip + its own blosc and HDF5)
+against the JAX package's tensorstore- and h5py-backed storage, in both
+directions: N5 raw/gzip, zarr null/zlib/blosc and HDF5, uint8/uint64/
+float32, ragged edge chunks, partial (read-modify-write) chunk writes and
+missing chunks.  Exact."""
 
 import itertools
 
@@ -81,13 +82,60 @@ def test_attrs_and_varlen_roundtrip(tmp_path):
     assert vl.read_chunk((0, 0)) is None and vl.chunk_ids() == [(1, 2)]
 
 
-def test_unported_formats_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_reader(str(tmp_path / "d.h5"))
-    with port_reader(str(tmp_path / "d.zarr")) as f:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            f.require_dataset("x", shape=(4,), dtype="uint8",
-                              compression="blosc")
+@pytest.mark.parametrize("ext,comp", [("zarr", "blosc"), ("h5", "gzip"),
+                                      ("h5", "raw")])
+def test_blosc_and_hdf5_roundtrips(tmp_path, ext, comp):
+    """Blosc zarr and ``.h5`` (once refused by the port) in both
+    directions: each package reads what the other wrote, partial chunk
+    writes and missing chunks included."""
+    data = _data("uint64", seed=11)
+    for writer, reader in ((port_reader, jax_reader),
+                           (jax_reader, port_reader)):
+        path = str(tmp_path / f"{writer.__module__.split('.')[0]}.{ext}")
+        want = _write(writer, path, "grp/x", data, comp)
+        with reader(path, "r") as f:
+            ds = f["grp/x"]
+            assert ds.shape == SHAPE and tuple(ds.chunks) == CHUNKS
+            assert ds.dtype == np.uint64
+            np.testing.assert_array_equal(ds[:], want)
+            np.testing.assert_array_equal(ds[3, 2:11, 3:], want[3, 2:11, 3:])
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint64", "float32"])
+def test_n5_blosc_creation_matches_jax(tmp_path, dtype):
+    """``N5File.require_dataset(..., compression="blosc")`` writes what the
+    JAX package writes: raw chunks, ``{"type": "raw"}`` in
+    ``attributes.json``; the metadata equals the JAX package's and every
+    chunk file is byte for byte the JAX package's."""
+    import json
+    import os
+
+    data = _data(dtype, seed=12)
+    trees = {}
+    for name, reader in (("jax", jax_reader), ("port", port_reader)):
+        path = str(tmp_path / f"{name}.n5")
+        with reader(path) as f:
+            ds = f.require_dataset("x", shape=SHAPE, chunks=CHUNKS,
+                                   dtype=dtype, compression="blosc")
+            ds[...] = data
+        root = os.path.join(path, "x")
+        files = {}
+        for dirpath, _, names in os.walk(root):
+            for n in names:
+                full = os.path.join(dirpath, n)
+                with open(full, "rb") as fh:
+                    files[os.path.relpath(full, root)] = fh.read()
+        trees[name] = files
+    meta = {k: json.loads(v["attributes.json"]) for k, v in trees.items()}
+    assert meta["port"] == meta["jax"]
+    assert meta["port"]["compression"] == {"type": "raw"}
+    assert trees["port"].keys() == trees["jax"].keys()
+    chunks = [k for k in trees["jax"] if k != "attributes.json"]
+    assert len(chunks) == 3 * 3 * 3
+    for key in chunks:
+        assert trees["port"][key] == trees["jax"][key], key
+    with port_reader(str(tmp_path / "jax.n5"), "r") as f:
+        np.testing.assert_array_equal(f["x"][...], data)
 
 
 def test_config_dirs_read_unchanged_across_packages(tmp_path):
@@ -113,3 +161,72 @@ def test_config_dirs_read_unchanged_across_packages(tmp_path):
     assert ConfigDir(cfg).task_config("fused_segmentation", defaults) == \
         JaxConfigDir(cfg).task_config("fused_segmentation",
                                       JaxFused.default_task_config())
+
+
+@pytest.mark.parametrize("ext", ["raw", "png"])
+def test_knossos_dataset_matches_jax(tmp_path, ext):
+    """``tests/test_utils.py::test_knossos_dataset`` on the port beside the
+    JAX package: a 2x1x1-cube pyramid level (raw cubes, and PNG cubes
+    read through imageio), read whole and across the cube boundary, equal
+    to the cubes and to the JAX package's reads."""
+    import os
+
+    from cluster_tools_tpu.utils.knossos import KnossosFile as JaxKnossos
+    from cluster_tools_tpu_torch.utils import KnossosDataset, KnossosFile
+
+    bs = KnossosDataset.block_size
+    root = tmp_path / "mag1"
+    rng = np.random.RandomState(0)
+    cubes = {}
+    for gx in range(2):
+        d = root / f"x{gx:04d}" / "y0000" / "z0000"
+        os.makedirs(d)
+        cube = rng.randint(0, 255, size=(bs, bs, bs), dtype=np.uint8)
+        cubes[gx] = cube
+        name = str(d / f"x{gx:04d}_y0000_z0000.{ext}")
+        if ext == "raw":
+            cube.tofile(name)
+        else:
+            import imageio.v2 as imageio
+            imageio.imwrite(name, cube.reshape(bs * bs, bs))
+    ds = KnossosFile(str(tmp_path))["mag1"]
+    ref = JaxKnossos(str(tmp_path))["mag1"]
+    assert ds.shape == ref.shape == (bs, bs, 2 * bs)
+    assert ds.dtype == np.uint8 and ds.chunks == ref.chunks
+    np.testing.assert_array_equal(ds[:, :, :bs], cubes[0])
+    np.testing.assert_array_equal(ds[:, :, bs:], cubes[1])
+    sub = ds[10:20, 0:5, bs - 4:bs + 4]
+    np.testing.assert_array_equal(sub, ref[10:20, 0:5, bs - 4:bs + 4])
+    np.testing.assert_array_equal(sub[..., :4], cubes[0][10:20, 0:5, -4:])
+    np.testing.assert_array_equal(sub[..., 4:], cubes[1][10:20, 0:5, :4])
+    np.testing.assert_array_equal(ds[5, :, 130], ref[5, :, 130])
+
+
+def test_knossos_prefix_discovery_and_file_reader(tmp_path):
+    """The JAX package's test of the same name on the port: the
+    experiment prefix is discovered and ``file_reader(".knossos")``
+    dispatches to the read-only Knossos file; a missing cube reads as
+    zeros."""
+    import os
+
+    from cluster_tools_tpu_torch.utils.knossos import KnossosDataset
+
+    bs = KnossosDataset.block_size
+    root = tmp_path / "vol.knossos" / "mag1"
+    d = root / "x0000" / "y0000" / "z0000"
+    os.makedirs(d)
+    os.makedirs(root / "x0000" / "y0000" / "z0001")
+    cube = np.random.RandomState(0).randint(0, 255, size=(bs, bs, bs),
+                                            dtype=np.uint8)
+    cube.tofile(str(d / "experiment_mag1_x0000_y0000_z0000.raw"))
+    with port_reader(str(tmp_path / "vol.knossos"), "r") as f:
+        ds = f["mag1"]
+        assert ds.file_prefix == "experiment_mag1" and ds.ext == "raw"
+        assert ds.shape == (2 * bs, bs, bs)
+        np.testing.assert_array_equal(ds[:bs], cube)
+        assert not ds[bs:].any()
+        with pytest.raises(KeyError):
+            f["mag2"]
+    with pytest.raises(ValueError, match="read-only"):
+        from cluster_tools_tpu_torch.utils import KnossosFile
+        KnossosFile(str(tmp_path / "vol.knossos"), mode="a")
