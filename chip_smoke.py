@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, then runs sixteen phases, each of which must pass:
+sources, then runs seventeen phases, each of which must pass:
 
 1. the build;
 2. the min-plus EDT kernel against its plain PyTorch version (in place
@@ -69,10 +69,10 @@ sources, then runs sixteen phases, each of which must pass:
    ``LiftedMulticutSegmentationWorkflow`` (the ground truth folded into
    classes as the lifted prior) and ``AgglomerativeClusteringWorkflow``
    over the same fragments; each held to the VOI gate;
-12. at full block width on a two-block crop of phase 4's volume: (a)
-   the fused chain with ``hybrid`` and ``legacy``, held to the CREMI
-   gate, their VOI to phase 4's fragments and segmentation logged, the
-   kernel's launches counted; (b) the
+12. at full block width on a two-block crop of phase 4's volume, (a)
+   and (b) on its first block: (a) the fused chain with ``hybrid`` and
+   ``legacy``, held to the CREMI gate, their VOI to phase 4's fragments
+   and segmentation logged, the kernel's launches counted; (b) the
    watershed's ``apply_ws_2d``, ``flood`` and ``non_maximum_suppression``
    options and the block-local agglomeration, scored against the ground
    truth, launches counted;
@@ -128,7 +128,7 @@ sources, then runs sixteen phases, each of which must pass:
    run-length coded and back, each timed; (c) on phase 12's crop:
    ``MorphologyWorkflow`` with ``RegionCenters`` (the table equal to a
    numpy oracle, every center inside its object), ``MeshWorkflow`` and
-   ``SkeletonWorkflow`` of the 8 largest bodies (every mesh closed, every
+   ``SkeletonWorkflow`` of the 4 largest bodies (every mesh closed, every
    skeleton voxel inside its object) with ``SkeletonEvaluation``,
    ``LabelMultisetWorkflow`` (counts equal to the windows' voxels, one
    block equal to a numpy brute force), ``DecompositionWorkflow`` over
@@ -156,7 +156,23 @@ sources, then runs sixteen phases, each of which must pass:
    zero-padded) read through ``file_reader(".knossos")`` equal to the
    crop.  The random-forest workflows (``LearningWorkflow``,
    ``EdgeCostsWorkflow(rf_path=...)``) need sklearn, which the card's
-   machine lacks: the CPU tests hold them.
+   machine lacks: the CPU tests hold them;
+17. the multi-device paths with 4 shards on the one card (the global
+   config's ``mesh_devices``): (a) ``halo_exchange`` (constant and
+   reflect) and a ``sharded_stencil`` Gaussian over a ``(64, 256, 256)``
+   float32 volume, bitwise equal to the dense versions; (b) the
+   mesh-resident program on a ``(64, 256, 256)`` uint8 crop of phase 4's
+   volume, card against CPU; (c) the fused chain with ``mesh_resident:
+   true`` on phase 4's volume (slabs ``[32, 1250, 1250]``) under the CREMI
+   gate, its VOI against the ground truth within 0.01 of phase 4's, one
+   ``sync-execute``, 12 kernel launches; (d) on phase 12's crop, the
+   fused chain and the split chain's watershed under ``target="mesh"``
+   bitwise equal to ``target="gpu"``; (e) ``ThresholdedComponentsWorkflow(
+   target="mesh")`` on a crop of phase 10a's input equal to
+   ``target="gpu"`` and to scipy's partition; (f) ``predict_sharded`` of 4
+   outer ``(60, 544, 544)`` blocks within 2e-5 of the per-block forwards;
+   (g) two processes splitting a ``BlockTask`` through the runtime's
+   multi-process path, with a gloo ``all_reduce``.
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -441,17 +457,20 @@ def _build(wf, tmp: str, store: str, ws_key: str, seg_key: str,
 
 
 def run_workflow(workdir: str, store: str, block, device: str,
-                 task_cfg=None, tag: str = ""):
-    """``MulticutSegmentationWorkflow(fused=True, target="gpu")`` with the
-    fused task config ``task_cfg`` (default config if None) on ``device``,
-    writing ``ws<tag>`` / ``seg<tag>``; returns (wall s, fragments,
-    segmentation, status JSONs by task)."""
+                 task_cfg=None, tag: str = "", target: str = "gpu",
+                 mesh_devices: int = 0):
+    """``MulticutSegmentationWorkflow(fused=True, target=target)`` with the
+    fused task config ``task_cfg`` (default config if None) on ``device``
+    (``mesh_devices`` shards for the mesh paths), writing ``ws<tag>`` /
+    ``seg<tag>``; returns (wall s, fragments, segmentation, status JSONs
+    by task)."""
     import cluster_tools_tpu_torch as ctp
     from cluster_tools_tpu_torch.core.config import ConfigDir
 
     cfg_dir = os.path.join(workdir, f"configs{tag}")
     ConfigDir(cfg_dir).write_global_config({"block_shape": list(block),
-                                            "device": device})
+                                            "device": device,
+                                            "mesh_devices": mesh_devices})
     ConfigDir(cfg_dir).write_task_config("fused_segmentation",
                                          task_cfg or {})
     tmp = os.path.join(workdir, f"tmp{tag}")
@@ -459,7 +478,7 @@ def run_workflow(workdir: str, store: str, block, device: str,
         input_path=store, input_key="bmap", ws_path=store, ws_key=f"ws{tag}",
         problem_path=os.path.join(workdir, f"problem{tag}.n5"),
         output_path=store, output_key=f"seg{tag}", tmp_folder=tmp,
-        config_dir=cfg_dir, max_jobs=os.cpu_count() or 1, target="gpu",
+        config_dir=cfg_dir, max_jobs=os.cpu_count() or 1, target=target,
         n_scales=1, fused=True)
     return _build(wf, tmp, store, f"ws{tag}", f"seg{tag}", device)
 
@@ -1208,19 +1227,22 @@ def blob_volume(shape, seed: int = 0, device: str = "cuda") -> np.ndarray:
     return ((x - lo) / max(hi - lo, 1e-6)).cpu().numpy()
 
 
-def config_dir(workdir: str, block, device: str, task_configs=None) -> str:
+def config_dir(workdir: str, block, device: str, task_configs=None,
+               mesh_devices: int = 0) -> str:
     from cluster_tools_tpu_torch.core.config import ConfigDir
 
     cfg = os.path.join(workdir, "configs")
     ConfigDir(cfg).write_global_config({"block_shape": list(block),
-                                        "device": device})
+                                        "device": device,
+                                        "mesh_devices": mesh_devices})
     for name, conf in (task_configs or {}).items():
         ConfigDir(cfg).write_task_config(name, conf)
     return cfg
 
 
 def run_cc(workdir: str, store: str, in_key: str, out_key: str, block,
-           device: str, target: str, mask_key: str = ""):
+           device: str, target: str, mask_key: str = "",
+           mesh_devices: int = 0):
     """``ThresholdedComponentsWorkflow`` at config 2's threshold on
     ``device``; returns (wall s, labels, maxId, status JSONs by task)."""
     import cluster_tools_tpu_torch as ctp
@@ -1229,7 +1251,8 @@ def run_cc(workdir: str, store: str, in_key: str, out_key: str, block,
     wf = ctp.ThresholdedComponentsWorkflow(
         input_path=store, input_key=in_key, output_path=store,
         output_key=out_key, threshold=CC_THRESHOLD, tmp_folder=tmp,
-        config_dir=config_dir(workdir, block, device),
+        config_dir=config_dir(workdir, block, device,
+                              mesh_devices=mesh_devices),
         max_jobs=os.cpu_count() or 1, target=target,
         mask_path=store if mask_key else "", mask_key=mask_key)
     wall = timed_build(wf, device)
@@ -1615,6 +1638,9 @@ FLOOD_BLOCK = [16, 64, 64]
 #: phase 12's crop of phase 4's volume: two blocks (the script's time
 #: limit: four through PR 8; ``legacy`` redoes every block, ~6-10 s each)
 CROP = (50, 512, 1024)
+#: phases 12a/12b's volume: the crop's first block (two blocks before
+#: phase 17 came, cut for the time limit, PERF.md section 4)
+CROP1 = (50, 512, 512)
 #: phases 11c/12c: the lifted prior is the ground truth folded into
 #: N_CLASSES semantic classes; lifted edges reach LIFTED_DEPTH hops
 N_CLASSES = 8
@@ -1635,21 +1661,22 @@ def gate_card_vs_cpu(name: str, card: np.ndarray, cpu: np.ndarray) -> float:
 
 def run_ws(workdir: str, store: str, block, device: str, ws_cfg,
            two_pass: bool = False, agglomeration: bool = False,
-           tag: str = ""):
-    """``WatershedWorkflow`` (target "gpu") with the watershed task config
-    ``ws_cfg`` on ``device``, writing ``ws<tag>``; returns (wall s,
+           tag: str = "", target: str = "gpu", mesh_devices: int = 0):
+    """``WatershedWorkflow`` (target ``target``) with the watershed task
+    config ``ws_cfg`` on ``device``, writing ``ws<tag>``; returns (wall s,
     fragments, status JSONs by task)."""
     import cluster_tools_tpu_torch as ctp
 
     cfg = config_dir(os.path.join(workdir, f"ws{tag}"), block, device,
                      {n: ws_cfg for n in ("watershed", "watershed_pass1",
-                                          "watershed_pass2")})
+                                          "watershed_pass2")},
+                     mesh_devices=mesh_devices)
     tmp = os.path.join(workdir, f"tmp_ws{tag}")
     wf = ctp.WatershedWorkflow(
         input_path=store, input_key="bmap", output_path=store,
         output_key=f"ws{tag}", two_pass=two_pass,
         agglomeration=agglomeration, tmp_folder=tmp, config_dir=cfg,
-        max_jobs=os.cpu_count() or 1, target="gpu")
+        max_jobs=os.cpu_count() or 1, target=target)
     wall = timed_build(wf, device)
     return wall, read_dataset(store, f"ws{tag}"), read_status(tmp)
 
@@ -1797,12 +1824,13 @@ def lifted_agglo_card_vs_cpu(root: str, data: np.ndarray, gt: np.ndarray):
         gate_card_vs_cpu(f"{which}-small", out["cuda"], out["cpu"])
 
 
-def write_crop(root: str, block, gt: np.ndarray):
-    """Phase 12's volume: the CROP of phase 4's input (its store still on
-    disk) in a store of its own; returns the store and the ground truth
-    there."""
-    box = tuple(slice(0, c) for c in CROP)
-    store = os.path.join(root, "crop", "data.n5")
+def write_crop(root: str, block, gt: np.ndarray, crop=None,
+               name: str = "crop"):
+    """Phase 12's volume: the ``crop`` (default CROP) of phase 4's input
+    (its store still on disk) in a store of its own; returns the store and
+    the ground truth there."""
+    box = tuple(slice(0, c) for c in (crop or CROP))
+    store = os.path.join(root, name, "data.n5")
     write_volume(store, read_dataset(os.path.join(root, "main", "data.n5"),
                                      "bmap", box), block)
     return store, np.ascontiguousarray(gt[box])
@@ -1810,17 +1838,19 @@ def write_crop(root: str, block, gt: np.ndarray):
 
 def variants_path(root: str, store: str, block, gt_c: np.ndarray):
     """Phase 12a: the fused chain with ws_method ``hybrid`` and ``legacy``
-    on the crop: CREMI under its gate, the VOI to phase 4's outputs there
-    logged, the kernel's launches counted (3 per block, plus 3 per legacy
-    redo); returns launches by method."""
+    on a crop (the first block of phase 12's crop, CROP1): CREMI under its
+    gate, the VOI to phase 4's outputs there logged, the kernel's launches
+    counted (3 per block, plus 3 per legacy redo); returns launches by
+    method."""
     import torch
 
     from cluster_tools_tpu_torch import kernels
     from cluster_tools_tpu_torch.core.blocking import Blocking
 
+    crop = gt_c.shape
     main = os.path.join(root, "main", "data.n5")
-    box = tuple(slice(0, c) for c in CROP)
-    n_blocks = Blocking(list(CROP), list(block)).n_blocks
+    box = tuple(slice(0, c) for c in crop)
+    n_blocks = Blocking(list(crop), list(block)).n_blocks
     launches = {}
     for method in ("hybrid", "legacy"):
         torch.cuda.reset_peak_memory_stats()
@@ -1830,8 +1860,8 @@ def variants_path(root: str, store: str, block, gt_c: np.ndarray):
             {"ws_method": method}, tag=f"_{method}")
         edt_calls = kernels.counts()["minplus"]
         peak = torch.cuda.max_memory_allocated()
-        log(f"variant-path {method} shape {list(CROP)} wall_s {wall} "
-            f"voxels_per_s {int(np.prod(CROP)) / wall} n_blocks {n_blocks} "
+        log(f"variant-path {method} shape {list(crop)} wall_s {wall} "
+            f"voxels_per_s {int(np.prod(crop)) / wall} n_blocks {n_blocks} "
             f"peak_device_bytes {peak}")
         for task, st in status.items():
             log(f"variant-path {method} task {task} wall_s "
@@ -1854,28 +1884,29 @@ def variants_path(root: str, store: str, block, gt_c: np.ndarray):
                                  f"{edt_calls} times for {n_blocks} blocks "
                                  f"and {redo} redos")
         if not (np.isfinite(list(sc.values())).all()
-                and sc["cremi"] <= CREMI_GATE and ws.shape == CROP):
+                and sc["cremi"] <= CREMI_GATE and ws.shape == crop):
             raise AssertionError(f"{method}: segmentation quality out of "
                                  f"bounds: {sc}")
         launches[method] = edt_calls
     return launches
 
 
-def crop_paths(root: str, store: str, block, gt_c: np.ndarray):
-    """Phases 12b and 12c on the crop (CROP, two blocks of ``block``):
-    the split watershed's ``apply_ws_2d``, ``flood`` and
-    ``non_maximum_suppression`` options and the block-local agglomeration,
-    then the lifted multicut and agglomerative clustering segmentations
-    over phase 4's fragments there; returns the kernel launches by
-    option."""
+def crop_paths(root: str, store: str, block, gt_c: np.ndarray,
+               ws_store: str, ws_gt: np.ndarray):
+    """Phase 12b on ``ws_store`` (CROP1, the first block of phase 12's
+    crop): the split watershed's ``apply_ws_2d``, ``flood`` and
+    ``non_maximum_suppression`` options and the block-local agglomeration;
+    then phase 12c on the crop (CROP, two blocks of ``block``): the lifted
+    multicut and agglomerative clustering segmentations over phase 4's
+    fragments there; returns the kernel launches by option."""
     from cluster_tools_tpu_torch import kernels
     from cluster_tools_tpu_torch.core.blocking import Blocking
 
     crop = tuple(slice(0, c) for c in CROP)
     main = os.path.join(root, "main", "data.n5")
-    wd = os.path.dirname(store)
-    nvox = int(np.prod(CROP))
-    n_blocks = Blocking(list(CROP), list(block)).n_blocks
+    wd = os.path.dirname(ws_store)
+    nvox = int(np.prod(ws_gt.shape))
+    n_blocks = Blocking(list(ws_gt.shape), list(block)).n_blocks
     expect = {"apply_ws_2d": 2 * n_blocks, "flood": 3 * n_blocks,
               "nms": 3 * n_blocks, "agglomeration": 3 * n_blocks}
     launches = {}
@@ -1883,12 +1914,12 @@ def crop_paths(root: str, store: str, block, gt_c: np.ndarray):
         if name not in expect:
             continue
         kernels.reset_counts()
-        wall, ws, status = run_ws(wd, store, block, "cuda", ws_cfg,
+        wall, ws, status = run_ws(wd, ws_store, block, "cuda", ws_cfg,
                                   agglomeration=agglo, tag=f"_{name}")
         edt_calls = kernels.counts()["minplus"]
         redo = status.get("watershed", {}).get("stage_counts", {}).get(
             "device-ws-redo", 0)
-        sc = scores(ws, gt_c)
+        sc = scores(ws, ws_gt)
         log(f"crop-ws {name} wall_s {wall} voxels_per_s "
             f"{nvox / wall} n_blocks {n_blocks} n_fragments "
             f"{int(ws.max())} minplus launches {edt_calls} ws-redo {redo} "
@@ -1899,13 +1930,15 @@ def crop_paths(root: str, store: str, block, gt_c: np.ndarray):
         if edt_calls != expect[name] + 3 * redo:
             raise AssertionError(f"crop-ws {name}: min-plus kernel launched "
                                  f"{edt_calls} times")
-        if not np.isfinite(list(sc.values())).all() or ws.shape != CROP:
+        if not np.isfinite(list(sc.values())).all() or \
+                ws.shape != ws_gt.shape:
             raise AssertionError(f"crop-ws {name}: bad fragments")
         launches[name] = edt_calls
     write_fragments(store, read_dataset(main, "ws", crop), gt_c, block)
     kernels.reset_counts()
     for which in ("lifted", "agglo"):
-        wall, seg = run_lifted_agglo(wd, store, block, "cuda", which)
+        wall, seg = run_lifted_agglo(os.path.dirname(store), store, block,
+                                     "cuda", which)
         sc = scores(seg, gt_c)
         log(f"crop-{which} wall_s {wall} n_segments {len(np.unique(seg))} "
             f"quality {json.dumps(sc)}")
@@ -2950,8 +2983,9 @@ SWEEP_AGREE_GATE = 0.97
 #: 15b: the round cap of the JAX package's wrapper, ``sweep_watershed``
 SWEEP_WRAPPER_ROUNDS = 48
 #: 15c: meshes and skeletons of the MESH_BODIES largest bodies (cut from
-#: 16 for the script's time limit, PERF.md section 4)
-MESH_BODIES = 8
+#: 16, then from 8 when phase 17 came, for the script's time limit,
+#: PERF.md section 4)
+MESH_BODIES = 4
 #: 15c: the chunks of the label volumes the per-object tasks read (each
 #: object reads the chunks its bounding box touches)
 LABEL_CHUNKS = [25, 128, 128]
@@ -3767,6 +3801,478 @@ def knossos_path(root: str, crop_store: str):
         raise AssertionError("16d: the Knossos read differs")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: multi-device — MESH_SHARDS shards on the one card
+# ---------------------------------------------------------------------------
+
+#: shards of phase 17's meshes, all on cuda:0 (the global config's
+#: ``mesh_devices``): the halo ring, the offset scan and the face exchange
+#: run on the card although it is one card
+MESH_SHARDS = 4
+#: phase 17a/b's volume
+P17_SHAPE = (64, 256, 256)
+P17_HALO = 3
+P17_SIGMA = 2.0
+#: phase 17e's crop of phase 10a's input, in config 2's blocks (8 blocks:
+#: two rounds of 4)
+P17_CC_CROP = (64, 512, 512)
+#: phase 17f: outer blocks of phase 8a's geometry and the gate against the
+#: per-block forwards
+P17_INF_OUTER = (60, 544, 544)
+SHARDED_ATOL = 2e-5
+#: phase 17g's two processes' script
+MP_DRIVER = """
+import json, os, sys
+sys.path.insert(0, {repo!r})
+
+from cluster_tools_tpu_torch.core.blocking import Blocking
+from cluster_tools_tpu_torch.core.runtime import BlockTask
+from cluster_tools_tpu_torch.core.storage import file_reader
+
+
+class CardFillTask(BlockTask):
+    '''Writes 2 * vol + block id per block, computed on the card.'''
+
+    task_name = "card_fill"
+
+    def __init__(self, path, **kw):
+        self.path = path
+        super().__init__(**kw)
+
+    def run_impl(self):
+        with file_reader(self.path, "r") as f:
+            shape = list(f["vol"].shape)
+        bs = self.global_block_shape()
+        with file_reader(self.path) as f:
+            f.require_dataset("out", shape=shape, chunks=bs,
+                              dtype="float32")
+        self.run_jobs(self.blocks_in_volume(shape, bs),
+                      {{"path": self.path, "shape": shape,
+                        "block_shape": bs}})
+
+    @classmethod
+    def process_job(cls, job_id, job_config, log_fn):
+        import torch
+
+        cfg = job_config["config"]
+        blocking = Blocking(cfg["shape"], cfg["block_shape"])
+        f = file_reader(cfg["path"])
+        for bid in job_config["block_list"]:
+            bb = blocking.get_block(bid).bb
+            x = torch.from_numpy(f["vol"][bb]).to("cuda")
+            f["out"][bb] = (x * 2.0 + float(bid)).cpu().numpy()
+            log_fn(f"processed block {{bid}}")
+
+
+if __name__ == "__main__":
+    import torch
+    import torch.distributed as dist
+    from cluster_tools_tpu_torch.core.workflow import build
+    from cluster_tools_tpu_torch.parallel import multihost as mh
+
+    pid = int(sys.argv[1])
+    mh.init_distributed(coordinator_address="127.0.0.1:{port}",
+                        num_processes=2, process_id=pid)
+    task = CardFillTask(path={path!r}, tmp_folder={tmp!r},
+                        config_dir={cfg!r}, max_jobs=2, target="gpu")
+    assert build([task], raise_on_failure=True)
+    x = torch.arange(4, dtype=torch.float32) + 10 * pid
+    dist.all_reduce(x)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({{"pid": pid, "all_reduce": x.tolist(),
+                      "device": torch.cuda.get_device_name(0)}}))
+"""
+
+
+def _mesh(axis: str, device: str = "cuda"):
+    from cluster_tools_tpu_torch.parallel import mesh as pm
+
+    return pm.single_axis_mesh(axis, MESH_SHARDS,
+                               devices=pm.shard_devices(device,
+                                                        MESH_SHARDS))
+
+
+def mesh_stencil_card():
+    """Phase 17a: ``halo_exchange`` (constant and reflect) over 4 shards
+    of a ``P17_SHAPE`` float32 volume, bitwise equal to the dense volume
+    padded and cut with overlaps, and a ``sharded_stencil`` Gaussian
+    bitwise equal to the dense Gaussian away from the volume ends (where
+    the stencil's own padding differs)."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops.filters import _gaussian_kernel, \
+        gaussian
+    from cluster_tools_tpu_torch.parallel import mesh as pm
+    from cluster_tools_tpu_torch.parallel import stencil as ps
+
+    mesh = _mesh("space")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    x = torch.rand(P17_SHAPE, device="cuda", generator=gen)
+    shards = pm.shard(x, mesh, pm.Placement(("space",)))
+    step, h = P17_SHAPE[0] // MESH_SHARDS, P17_HALO
+    rec = {"mesh": mesh.describe()}
+    ok = mesh.physical_devices == 1 and all(
+        s.device.type == "cuda" for s in shards)
+    for mode in ("constant", "reflect"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grown = ps.halo_exchange(shards, h, 0, fill=-1.0, mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if mode == "reflect":
+            xp = torch.cat([x[1:h + 1].flip(0), x, x[-h - 1:-1].flip(0)])
+        else:
+            pad = torch.full((h,) + P17_SHAPE[1:], -1.0, device="cuda")
+            xp = torch.cat([pad, x, pad])
+        same = all(torch.equal(g, xp[i * step:i * step + step + 2 * h])
+                   for i, g in enumerate(grown))
+        # the grown shards own their storage: no shard aliases another
+        ptrs = {g.data_ptr() for g in grown} | {s.data_ptr() for s in shards}
+        rec[mode] = {"wall_s": wall, "bitwise": same,
+                     "distinct_storage": len(ptrs) == 2 * MESH_SHARDS}
+        ok = ok and same and len(ptrs) == 2 * MESH_SHARDS
+    r = _gaussian_kernel(P17_SIGMA).shape[0] // 2
+    fn = ps.sharded_stencil(lambda a: gaussian(a, P17_SIGMA), mesh, halo=r,
+                            axis=0, mesh_axis="space", mode="reflect")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = gaussian(x, P17_SIGMA)
+    same = torch.equal(got[r:-r], want[r:-r])
+    rec["gaussian"] = {"sigma": P17_SIGMA, "halo": r, "wall_s": wall,
+                       "bitwise_interior": same}
+    log(f"mesh-stencil shape {list(P17_SHAPE)} {json.dumps(rec)}")
+    if not (ok and same):
+        raise AssertionError(f"mesh stencil on the card: {rec}")
+
+
+def mesh_program_card_vs_cpu(root: str):
+    """Phase 17b: the mesh-resident program on a ``P17_SHAPE`` uint8 crop
+    of phase 4's volume, 4 shards on the card against 4 on the CPU:
+    labels, meta and edge tables identical, features identical but for
+    the mean and variance (rtol 1e-6: the float32 ``hist @ levels``
+    product sums in another order); 3 kernel launches per shard on the
+    card, none on the CPU.  Returns the card's launches."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.parallel import mesh as pm
+    from cluster_tools_tpu_torch.workflows import fused_pipeline as fp
+
+    box = tuple(slice(0, c) for c in P17_SHAPE)
+    data = read_dataset(os.path.join(root, "main", "data.n5"), "bmap", box)
+    cfg = fp.FusedSegmentationBlocks.default_task_config()
+    # the fused task's defaults, as the mesh-resident driver sets them
+    params = fp.mesh_params(cfg, P17_SHAPE, MESH_SHARDS, cfg["halo"], True,
+                            cfg["e_max"], 1)
+    out, launches, walls = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        mesh = _mesh("shard", dev)
+        slabs = pm.shard(torch.from_numpy(np.ascontiguousarray(data)), mesh,
+                         pm.Placement(("shard",)))
+        kernels.reset_counts()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labs, metas, uvs, fts = fp.mesh_resident_program(slabs, params)
+        meta = torch.stack([m.cpu() for m in metas]).numpy()
+        walls[dev] = time.perf_counter() - t0
+        launches[dev] = kernels.counts()["minplus"]
+        out[dev] = (torch.cat([t.cpu() for t in labs]).numpy(), meta,
+                    [u.cpu().numpy()[:meta[s, 1]] for s, u in enumerate(uvs)],
+                    [f.cpu().numpy()[:meta[s, 1]] for s, f in enumerate(fts)])
+    (lc, mc, uc, fc), (lp, mp, up, fpp) = out["cuda"], out["cpu"]
+    same_uv = all(np.array_equal(a, b) for a, b in zip(uc, up))
+    same_q = all(np.array_equal(a[:, 2:], b[:, 2:]) for a, b in zip(fc, fpp))
+    err_mv = max((float(np.abs(a[:, :2] - b[:, :2]).max()) if len(a) else 0.0)
+                 for a, b in zip(fc, fpp))
+    close_mv = all(np.allclose(a[:, :2], b[:, :2], rtol=1e-6, atol=1e-7)
+                   for a, b in zip(fc, fpp))
+    rec = {"labels": bool(np.array_equal(lc, lp)),
+           "meta": bool(np.array_equal(mc, mp)), "uv": same_uv,
+           "feats_cols_2_on": same_q, "feats_identical": all(
+               np.array_equal(a, b) for a, b in zip(fc, fpp)),
+           "mean_var_max_abs_err": err_mv, "n_fragments": int(mc[:, 0].sum()),
+           "n_edges": int(mc[:, 1].sum()), "launches": launches,
+           "wall_s": walls}
+    log(f"mesh-program card-vs-cpu shape {list(P17_SHAPE)} "
+        f"{json.dumps(rec)}")
+    if not (rec["labels"] and rec["meta"] and same_uv and same_q
+            and close_mv and mc[:, 4].all() and launches["cpu"] == 0
+            and launches["cuda"] == 3 * MESH_SHARDS):
+        raise AssertionError(f"mesh program card and CPU disagree: {rec}")
+    return launches["cuda"]
+
+
+def _job_log_line(tmp: str, task: str, needle: str) -> str:
+    path = os.path.join(tmp, "logs", f"{task}_0.log")
+    with open(path) as f:
+        for line in f:
+            if needle in line:
+                return line.strip()
+    return ""
+
+
+def mesh_resident_path(root: str, block, gt: np.ndarray, block_quality):
+    """Phase 17c: the fused chain with ``mesh_resident: true`` and 4
+    shards on phase 4's volume (slabs ``[32, 1250, 1250]``): CREMI under
+    its gate, VOI against the ground truth within VOI_GATE of phase 4's
+    blockwise run, ONE ``sync-execute``, 3 kernel launches per shard.
+    Returns the launches."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+
+    wd = os.path.join(root, "main")
+    store = os.path.join(wd, "data.n5")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    wall, ws, seg, status = run_workflow(
+        wd, store, block, "cuda",
+        {"mesh_resident": True, "mesh_shards": MESH_SHARDS}, tag="_mesh",
+        mesh_devices=MESH_SHARDS)
+    launches = kernels.counts()["minplus"]
+    peak = torch.cuda.max_memory_allocated()
+    fused = status["fused_segmentation"]
+    caps = _job_log_line(os.path.join(wd, "tmp_mesh"), "fused_segmentation",
+                         "capacities")
+    log(f"mesh-resident shape {list(FULL_SHAPE)} slabs "
+        f"{fused.get('n_blocks')} wall_s {wall} "
+        f"voxels_per_s {int(np.prod(FULL_SHAPE)) / wall} "
+        f"peak_device_bytes {peak} mesh_devices {fused.get('mesh_devices')} "
+        f"physical_devices {fused.get('physical_devices')} {caps}")
+    for task, st in status.items():
+        log(f"mesh-resident task {task} wall_s {st.get('wall_time')} "
+            f"stages {json.dumps(st.get('stages', {}))} "
+            f"stage_counts {json.dumps(st.get('stage_counts', {}))}")
+    sc = scores(seg, gt)
+    v_mesh = sc["voi_split"] + sc["voi_merge"]
+    v_block = block_quality["voi_split"] + block_quality["voi_merge"]
+    syncs = fused["stage_counts"].get("sync-execute")
+    log(f"mesh-resident quality {json.dumps(sc)} n_fragments "
+        f"{int(ws.max())} VOI {v_mesh} blockwise VOI {v_block} "
+        f"(gate {VOI_GATE}) sync-execute {syncs} minplus launches "
+        f"{launches}")
+    if not (np.isfinite(list(sc.values())).all()
+            and sc["cremi"] <= CREMI_GATE
+            and abs(v_mesh - v_block) <= VOI_GATE):
+        raise AssertionError(f"mesh-resident quality out of bounds: {sc}")
+    if syncs != 1 or launches != 3 * MESH_SHARDS or \
+            fused.get("mesh_devices") != MESH_SHARDS or \
+            fused.get("physical_devices") != 1:
+        raise AssertionError(f"mesh-resident dispatch: sync-execute {syncs}"
+                             f" launches {launches} status {fused}")
+    return launches
+
+
+def mesh_target_crop(root: str, crop_store: str, block):
+    """Phase 17d: on phase 12's two-block crop, the fused chain and the
+    split chain's watershed under ``target="mesh"`` (block i on shard i mod
+    4), bitwise equal to the same chains
+    under ``target="gpu"``; returns the kernel launches by run."""
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+
+    wd = os.path.dirname(crop_store)
+    n_blocks = Blocking(list(CROP), list(block)).n_blocks
+    launches, frags, walls = {}, {}, {}
+    for target in ("gpu", "mesh"):
+        kernels.reset_counts()
+        walls[f"fused-{target}"], ws, seg, st = run_workflow(
+            wd, crop_store, block, "cuda", tag=f"_17{target}",
+            target=target, mesh_devices=MESH_SHARDS)
+        launches[f"fused-{target}"] = kernels.counts()["minplus"]
+        frags[f"fused-{target}"] = (ws, seg)
+        kernels.reset_counts()
+        walls[f"ws-{target}"], w, _ = run_ws(
+            wd, crop_store, block, "cuda", {}, tag=f"_17ws{target}",
+            target=target, mesh_devices=MESH_SHARDS)
+        launches[f"ws-{target}"] = kernels.counts()["minplus"]
+        frags[f"ws-{target}"] = (w,)
+    same = {k: all(np.array_equal(a, b) for a, b in
+                   zip(frags[f"{k}-mesh"], frags[f"{k}-gpu"]))
+            for k in ("fused", "ws")}
+    log(f"mesh-target crop {list(CROP)} blocks {n_blocks} "
+        f"bitwise {json.dumps(same)} walls {json.dumps(walls)} "
+        f"minplus launches {json.dumps(launches)}")
+    # three EDT launches per block on either target: no shard runs
+    # anything but its own blocks
+    expect = {k: 3 * n_blocks for k in launches}
+    if not all(same.values()) or launches != expect:
+        raise AssertionError(f"mesh target: bitwise {same} launches "
+                             f"{launches} (expected {expect})")
+    return launches
+
+
+def mesh_cc_crop(root: str):
+    """Phase 17e: ``ThresholdedComponentsWorkflow(target="mesh")`` on a
+    ``P17_CC_CROP`` crop of phase 10a's input (two rounds of 4 blocks):
+    the ``gpu`` run's labels, scipy's partition, faces merged on the
+    card."""
+    from scipy import ndimage
+
+    box = tuple(slice(0, c) for c in P17_CC_CROP)
+    vol = read_dataset(os.path.join(root, "cc_main", "data.n5"), "raw", box)
+    wd = os.path.join(root, "cc_mesh")
+    store = os.path.join(wd, "data.n5")
+    write_dataset(store, "raw", vol, CC_BLOCK)
+    out, walls = {}, {}
+    for target in ("gpu", "mesh"):
+        walls[target], out[target], _, status = run_cc(
+            os.path.join(wd, target), store, "raw", f"cc_{target}", CC_BLOCK,
+            "cuda", target, mesh_devices=MESH_SHARDS)
+        if target == "mesh":
+            st = status["mesh_block_components"]
+            with open(os.path.join(wd, target, "tmp", "cc_offsets.json")) \
+                    as f:
+                covered = len(json.load(f)["covered_faces"])
+    ref, n = ndimage.label(vol > CC_THRESHOLD)
+    rec = {"identical": bool(np.array_equal(out["mesh"], out["gpu"])),
+           "scipy_partition": same_partition(out["mesh"], ref),
+           "n_components": int(out["mesh"].max()), "n_scipy": int(n),
+           "covered_faces": covered, "mesh_devices": st.get("mesh_devices"),
+           "physical_devices": st.get("physical_devices"), "walls": walls}
+    log(f"mesh-cc crop {list(P17_CC_CROP)} {json.dumps(rec)}")
+    if not (rec["identical"] and rec["scipy_partition"] and covered > 0
+            and rec["mesh_devices"] == MESH_SHARDS):
+        raise AssertionError(f"mesh CC: {rec}")
+
+
+def sharded_inference(root: str, ckpt: str):
+    """Phase 17f: ``predict_sharded`` of 4 outer ``P17_INF_OUTER`` blocks of
+    phase 4's volume with the default-width U-Net over 4 shards on the
+    card, within SHARDED_ATOL of the per-block forwards of
+    ``InferenceTask``'s predictor."""
+    import torch
+
+    from cluster_tools_tpu_torch.parallel.mesh import shard_devices
+    from cluster_tools_tpu_torch.workflows.inference import (make_predictor,
+                                                             predict_sharded)
+
+    main = os.path.join(root, "main", "data.n5")
+    d, h, w = P17_INF_OUTER
+    vol = np.stack([read_dataset(main, "bmap", (slice(0, d),
+                                                slice(y, y + h),
+                                                slice(x, x + w)))
+                    for y in (0, h) for x in (0, w)])
+    devs = shard_devices("cuda", MESH_SHARDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = predict_sharded(ckpt, vol, devices=devs)
+    wall = time.perf_counter() - t0
+    pred = make_predictor(ckpt, P17_INF_OUTER, (0, 0, 0), device="cuda")
+    t0 = time.perf_counter()
+    want = np.stack([pred(b) for b in vol])
+    wall_pb = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    log(f"sharded-inference blocks {len(vol)} outer {list(P17_INF_OUTER)} "
+        f"wall_s {wall} per-block wall_s {wall_pb} max_abs_err {err} "
+        f"(gate {SHARDED_ATOL})")
+    if got.shape != want.shape or not np.isfinite(got).all() or \
+            err > SHARDED_ATOL:
+        raise AssertionError(f"predict_sharded differs from the per-block "
+                             f"forwards by {err}")
+
+
+def two_process_run(root: str):
+    """Phase 17g: two processes on the card's machine — a ``BlockTask``
+    (each block ``2 * vol + id`` computed on the card) split between them
+    through the runtime's multi-process path, and a gloo ``all_reduce``
+    over ``torch.distributed`` at ``tcp://127.0.0.1``."""
+    import socket
+
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+
+    wd = os.path.join(root, "multiprocess")
+    os.makedirs(wd)
+    store = os.path.join(wd, "data.n5")
+    shape, bs = (64, 256, 256), [32, 128, 128]
+    vol = np.random.RandomState(17).rand(*shape).astype("float32")
+    write_dataset(store, "vol", vol, bs)
+    cfg = os.path.join(wd, "configs")
+    ConfigDir(cfg).write_global_config({"block_shape": bs,
+                                        "device": "cuda"})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = os.path.join(wd, "driver.py")
+    tmp = os.path.join(wd, "tmp")
+    with open(script, "w") as f:
+        f.write(MP_DRIVER.format(repo=os.path.dirname(
+            os.path.abspath(__file__)), port=port, path=store, tmp=tmp,
+            cfg=cfg))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CTT_PROCESS_COUNT", "CTT_PROCESS_ID")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, str(pid)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"process failed:\n{o[-3000:]}")
+    res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    out = read_dataset(store, "out")
+    blocking = Blocking(list(shape), bs)
+    want = np.empty_like(vol)
+    for bid in range(blocking.n_blocks):
+        bb = blocking.get_block(bid).bb
+        want[bb] = vol[bb] * 2.0 + float(bid)
+    per_job = []
+    for job in (0, 1):
+        with open(os.path.join(tmp, "logs", f"card_fill_{job}.log")) as f:
+            per_job.append(f.read().count("processed block"))
+    with open(os.path.join(tmp, "card_fill.status")) as f:
+        st = json.load(f)
+    rec = {"wall_s": wall, "blocks_per_process": per_job,
+           "all_reduce": [r["all_reduce"] for r in res],
+           "identical": bool(np.array_equal(out, want)),
+           "status_process_count": st.get("process_count")}
+    log(f"two-process {json.dumps(rec)}")
+    if not (rec["identical"] and all(c > 0 for c in per_job)
+            and sum(per_job) == blocking.n_blocks
+            and all(r["all_reduce"] == [10.0, 12.0, 14.0, 16.0] for r in res)
+            and rec["status_process_count"] == 2):
+        raise AssertionError(f"two-process run: {rec}")
+
+
+def mesh_paths(root: str, block, gt: np.ndarray, block_quality,
+               crop_store: str, ckpt: str):
+    """Phase 17: the multi-device paths with MESH_SHARDS shards on the one
+    card; returns the kernel launches by part."""
+    log(f"phase 17: {MESH_SHARDS} shards on 1 card")
+    launches = {}
+    _phase("17a", mesh_stencil_card)
+    launches["17b"] = _phase("17b", mesh_program_card_vs_cpu, root)
+    launches["17c"] = _phase("17c", mesh_resident_path, root, block, gt,
+                             block_quality)
+    launches.update({f"17d-{k}": v for k, v in _phase(
+        "17d", mesh_target_crop, root, crop_store, block).items()})
+    _phase("17e", mesh_cc_crop, root)
+    _phase("17f", sharded_inference, root, ckpt)
+    _phase("17g", two_process_run, root)
+    return launches
+
+
+def _phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name} elapsed_s {time.perf_counter() - t0}")
+    return out
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -3804,11 +4310,7 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
 
-    def phase(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        log(f"phase {name} elapsed_s {time.perf_counter() - t0}")
-        return out
+    phase = _phase
 
     try:
         from cluster_tools_tpu_torch.utils.synthetic import (
@@ -3850,10 +4352,14 @@ def main() -> int:
               as_uint8(synthetic_instance(FLOOD_SHAPE, seed=4)[1]))
         phase("11c", lifted_agglo_card_vs_cpu, root, data11, gt11)
         crop_store, gt_crop = write_crop(root, BLOCK, gt)
-        variant_launches = phase("12a", variants_path, root, crop_store,
-                                 BLOCK, gt_crop)
+        # the fused chain's other executions and the watershed's options
+        # on the crop's first block (PERF.md section 4: cut for the time
+        # limit when phase 17 came)
+        crop1_store, gt_crop1 = write_crop(root, BLOCK, gt, CROP1, "crop1")
+        variant_launches = phase("12a", variants_path, root, crop1_store,
+                                 BLOCK, gt_crop1)
         crop_launches = phase("12bc", crop_paths, root, crop_store, BLOCK,
-                              gt_crop)
+                              gt_crop, crop1_store, gt_crop1)
         # phase 13: serving on the card, then the edit lane beside it
         serve_launches = {"13a": phase("13a", serve_card_vs_cpu)}
         crops, crop_gts = serve_crops(root, gt, SERVE_LOAD["n_requests"])
@@ -3900,6 +4406,9 @@ def main() -> int:
         phase("16d", knossos_path, root, crop_store)
         if kernels.counts()["minplus"] != 0:
             raise AssertionError("phases 16b-d launched the min-plus kernel")
+        # phase 17: the multi-device paths, 4 shards on the one card
+        mesh_launches = mesh_paths(root, BLOCK, gt, record["quality"],
+                                   crop_store, ckpt)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3909,14 +4418,15 @@ def main() -> int:
                 **{f"12a-{m}": n for m, n in variant_launches.items()},
                 **{f"12b-{m}": n for m, n in crop_launches.items()},
                 **serve_launches, **filter_launches, "15": late["minplus"],
-                "16a": h5_launches}
+                "16a": h5_launches, **mesh_launches}
     line = {"kernels": [{
         "name": k.name, "route": k.route, "source": k.source,
         "replaces": k.replaces,
         # the main paths' runs: the fused chain, the split chain, the fused
         # chain's hybrid and legacy executions, the watershed's options,
         # the ROI pipeline card against CPU and on the resident server, the
-        # filter-bank chain and the object fit, the fused chain on HDF5
+        # filter-bank chain and the object fit, the fused chain on HDF5,
+        # the mesh program, the mesh-resident chain and the mesh rounds
         "launches": sum(by_phase.values()),
         "launches_by_phase": by_phase,
         "max_abs_err": max_err,

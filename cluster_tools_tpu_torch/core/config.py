@@ -34,6 +34,10 @@ def default_global_config() -> Dict[str, Any]:
         # torch device of the fused device tasks: the card unless the
         # caller asks for the CPU ("cpu"); a missing card raises
         "device": "cuda",
+        # shards of a device mesh (parallel/mesh.py): 0 = one per visible
+        # device; n > 0 places n shards round-robin over the visible
+        # devices (several shards on one card, or on the CPU)
+        "mesh_devices": 0,
         # span recording (core.telemetry): off by default; the ring size
         # bounds the in-memory span ring (None = recorder default)
         "telemetry_enabled": False,

@@ -1222,7 +1222,7 @@ class Dataset:
         return np.zeros(shape, d.dt.mem)
 
     # -- chunks ----------------------------------------------------------------
-    def _decode_chunk(self, entry) -> np.ndarray:
+    def _decode_chunk(self, entry, pos) -> np.ndarray:
         d, state = self._obj, self._obj.state
         addr, nbytes, mask = entry
         raw = state.read(addr, nbytes)
@@ -1235,7 +1235,11 @@ class Dataset:
             elif fid == 2:
                 raw = _unshuffle(raw, values[0] if values else d.dt.size)
             elif fid == 3:
-                raw = raw[:-4]
+                raw, stored = raw[:-4], raw[-4:]
+                if not _fletcher32_matches(raw, stored):
+                    raise OSError(
+                        f"Can't read data (fletcher32 checksum mismatch in "
+                        f"dataset {self.name!r}, chunk {tuple(pos)})")
         return state.from_disk(d.dt, raw, d.chunks)
 
     def _encode_chunk(self, arr: np.ndarray) -> bytes:
@@ -1278,7 +1282,7 @@ class Dataset:
             entry = index.get(pos)
             if entry is None:
                 continue
-            data = self._decode_chunk(entry)
+            data = self._decode_chunk(entry, pos)
             src, dst = [], []
             for p, c, s in zip(pos, d.chunks, sl):
                 lo, hi = max(s.start, p * c), min(s.stop, (p + 1) * c)
@@ -1333,7 +1337,8 @@ class Dataset:
             # ctt-lint: disable=blocking-under-lock (the chunk's read-modify-write IS the critical section: the per-chunk lock serializes partial writes of one chunk)
             with lock:
                 entry = index.get(pos)
-                full = (self._decode_chunk(entry).copy() if entry is not None
+                full = (self._decode_chunk(entry, pos).copy()
+                        if entry is not None
                         else self._filled(d.chunks))
                 full[dst] = arr[src]
                 self._store(pos, full)
@@ -1345,6 +1350,46 @@ class Dataset:
         with state.lock:
             d.index()[pos] = (addr, len(raw), 0)
             d.touch()
+
+
+def fletcher32(data: bytes) -> int:
+    """HDF5's Fletcher-32 (``H5_checksum_fletcher32`` in H5checksum.c):
+    16-bit words, high byte first, summed in runs of 360 words with the
+    two sums folded to 16 bits after each run, a trailing odd byte as the
+    high byte of one more word, and a last fold."""
+    buf = np.frombuffer(data, np.uint8)
+    n_words = buf.size // 2
+    words = (buf[:2 * n_words:2].astype(np.int64) << 8) \
+        | buf[1:2 * n_words:2].astype(np.int64)
+    sum1 = sum2 = 0
+    for lo in range(0, n_words, 360):
+        run = words[lo:lo + 360]
+        # sum2 gains sum1 after every word: the previous sum1 once per
+        # word plus the running prefix sums of this run
+        # (masked to 32 bits: the sums are uint32 in HDF5)
+        sum2 = (sum2 + len(run) * sum1 + int(np.cumsum(run).sum())) \
+            & 0xFFFFFFFF
+        sum1 = (sum1 + int(run.sum())) & 0xFFFFFFFF
+        sum1 = (sum1 & 0xFFFF) + (sum1 >> 16)
+        sum2 = (sum2 & 0xFFFF) + (sum2 >> 16)
+    if buf.size % 2:
+        sum1 += int(buf[-1]) << 8
+        sum2 += sum1
+        sum1 = (sum1 & 0xFFFF) + (sum1 >> 16)
+        sum2 = (sum2 & 0xFFFF) + (sum2 >> 16)
+    sum1 = (sum1 & 0xFFFF) + (sum1 >> 16)
+    sum2 = (sum2 & 0xFFFF) + (sum2 >> 16)
+    return ((sum2 << 16) | sum1) & 0xFFFFFFFF
+
+
+def _fletcher32_matches(raw: bytes, stored: bytes) -> bool:
+    """The stored checksum (little-endian) against the chunk's bytes;
+    HDF5's reader also takes the byte-swapped form older versions wrote
+    on little-endian machines (H5Zfletcher32.c)."""
+    want = fletcher32(raw)
+    swapped = bytes([stored[1], stored[0], stored[3], stored[2]])
+    return want in (int.from_bytes(stored, "little"),
+                    int.from_bytes(swapped, "little"))
 
 
 def _unshuffle(raw: bytes, typesize: int) -> bytes:

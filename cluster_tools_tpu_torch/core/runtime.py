@@ -150,6 +150,31 @@ def log_stage_times() -> None:
         log(f"{_COUNT_LINE} {json.dumps({k: int(v) for k, v in cn.items()})}")
 
 
+_STATUS_LINE = "status fields"
+
+
+def status_fields(log_fn, **fields) -> None:
+    """Record ``fields`` for the task's status JSON from inside a job, under
+    any executor: a job-log line the driver parses, like the stage lines.
+    A mesh-aware task records its shards and the distinct devices under
+    them, so 4 shards on one card never read as 4 cards."""
+    log_fn(f"{_STATUS_LINE} {json.dumps(fields)}")
+
+
+def parse_status_fields(log_path: str) -> Dict[str, Any]:
+    """The fields :func:`status_fields` wrote into one job log (the last
+    value of a key wins)."""
+    out: Dict[str, Any] = {}
+    if not os.path.exists(log_path):
+        return out
+    with open(log_path) as f:
+        for line in f:
+            pos = line.find(_STATUS_LINE + " {")
+            if pos >= 0:
+                out.update(json.loads(line[pos + len(_STATUS_LINE):]))
+    return out
+
+
 def parse_stage_times(log_path: str, line_tag: str = _STAGE_LINE
                       ) -> Dict[str, float]:
     out: Dict[str, float] = {}
@@ -795,22 +820,17 @@ def _run_job_inline(task_cls, config_path: str, log_fn) -> None:
     log_fn(f"{_JOB_SUCCESS} {job_id}")
 
 
-class _MeshExecutor:
-    """Placeholder for the JAX package's ``mesh`` target: the multi-device
-    path is not ported yet."""
-
-    def __init__(self, *_args, **_kw):
-        raise NotImplementedError(
-            "target='mesh' is not ported yet (ROADMAP A14, multi-device)")
-
-
 EXECUTORS = {
     "local": _LocalExecutor,
     "inline": _InlineExecutor,
     # the counterpart of the JAX package's ``tpu`` target: device tasks run
     # inline in the driver process, which owns the card
     "gpu": _InlineExecutor,
-    "mesh": _MeshExecutor,
+    # the ``mesh`` target runs mesh-aware tasks in rounds of one block per
+    # shard device (the fused chain, the watershed, mesh CC in
+    # workflows/mesh_blockwise.py); tasks without a mesh formulation run
+    # inline in the driver process, which owns every device
+    "mesh": _InlineExecutor,
     "threads": _ThreadExecutor,
 }
 
@@ -825,7 +845,8 @@ class BlockTask(Task):
 
     Universal constructor parameters (reference: WorkflowBase params,
     cluster_tasks.py:623-654): ``tmp_folder``, ``config_dir``, ``max_jobs``,
-    ``target`` ('local' | 'threads' | 'inline' | 'gpu'), ``dependency``.
+    ``target`` ('local' | 'threads' | 'inline' | 'gpu' | 'mesh'),
+    ``dependency``.
 
     Subclasses implement:
       * ``run_impl()`` — create outputs, compute the block list, call
@@ -962,6 +983,12 @@ class BlockTask(Task):
                 "script defines tasks at module level, guard the driver code "
                 "with `if __name__ == '__main__':` (as with multiprocessing) "
                 "so workers can import the task class without re-running it.")
+        from ..parallel import multihost as mh
+
+        if mh.process_count() > 1:
+            return self._run_jobs_multiprocess(
+                block_list, task_specific_config, n_jobs,
+                consecutive_blocks=consecutive_blocks)
         if block_list is None or self.global_task:
             n_jobs = 1
             job_blocks: List[Optional[List[int]]] = [
@@ -1056,6 +1083,139 @@ class BlockTask(Task):
         self.run_jobs(failed_blocks, task_specific_config, n_jobs=n_jobs,
                       consecutive_blocks=consecutive_blocks)
 
+    def _run_jobs_multiprocess(self, block_list, task_specific_config,
+                               n_jobs: Optional[int] = None,
+                               consecutive_blocks: bool = False) -> None:
+        """Cooperative execution across SPMD processes (multi-host mode,
+        parallel/multihost.py): blockwise tasks shard one job per process
+        (round-robin or consecutive); global tasks AND single-job tasks
+        (n_jobs=1 callers own cross-block state, e.g. the fused chain's
+        running offsets) run on the lead only.  Everyone meets at a
+        filesystem barrier, then every process verifies ALL job logs over
+        the shared store — the reference's many-nodes path
+        (cluster_tasks.py:375-490) with processes instead of sbatch.
+
+        Block-granular retry works IN-RUN like the single-process path
+        (reference semantics, cluster_tasks.py:136-170): the shared logs
+        are the consensus channel — after the barrier every process
+        parses the SAME files, derives the SAME failed-block list, and
+        re-enters its shard of it; no extra coordination needed."""
+        from ..parallel import multihost as mh
+
+        pc, pid = mh.process_count(), mh.process_index()
+        global_job = (block_list is None or self.global_task
+                      or n_jobs == 1)
+        if global_job:
+            n_jobs = 1
+            job_blocks: List[Optional[List[int]]] = [
+                None if block_list is None else list(block_list)]
+            my_jobs = [0] if mh.is_lead() else []
+        else:
+            block_list = list(block_list)
+            n_jobs = pc
+            if consecutive_blocks:
+                per = (len(block_list) + pc - 1) // pc
+                job_blocks = [block_list[j * per:(j + 1) * per]
+                              for j in range(pc)]
+            else:
+                job_blocks = [block_list[j::pc] for j in range(pc)]
+            my_jobs = [pid] if job_blocks[pid] else []
+
+        import inspect
+
+        try:
+            src_file = inspect.getfile(type(self))
+        except TypeError:
+            src_file = None
+        for job_id in range(n_jobs):
+            if not global_job and not job_blocks[job_id]:
+                continue
+            job_config = {
+                "job_id": job_id, "block_list": job_blocks[job_id],
+                "tmp_folder": self.tmp_folder, "config_dir": self.config_dir,
+                "task_name": self.name_with_id, "target": self.target,
+                "src_file": src_file,
+                "global_config": self.global_config,
+                "config": {**self.task_config, **task_specific_config},
+            }
+            if job_id == pid or (global_job and mh.is_lead()):
+                config_mod.write_config(self.job_config_path(job_id),
+                                        job_config)
+
+        executor = EXECUTORS[self.target]()
+        # same cross-attempt baseline as the single-process path: the
+        # status must reflect the WHOLE task, not the final retry
+        if self._retry_count == 0:
+            self._attempt_t0 = time.time()
+            self._attempt_stages = stages_snapshot()
+            self._attempt_bytes = bytes_snapshot()
+            self._attempt_counts = counts_snapshot()
+            self._corr_id = uuid.uuid4().hex[:12]
+        stages_before = self._attempt_stages
+        if my_jobs:
+            # process identity on the span: single-shard traces stay
+            # self-describing before any merge
+            with telemetry.correlation(self._corr_id), \
+                    telemetry.span(self.name_with_id, cat="attempt",
+                                   correlation_id=self._corr_id,
+                                   attempt=self._retry_count,
+                                   n_jobs=len(my_jobs),
+                                   process_index=pid,
+                                   process_count=pc):
+                executor.run(self, my_jobs)
+        # the jobs barrier waits for REAL work (on global tasks, peers sit
+        # here for the lead's entire job) — default unbounded, overridable
+        # via global config; the verdict/status barriers below are pure
+        # bookkeeping and keep the short default
+        mh.fs_barrier(self.tmp_folder, f"{self.name_with_id}_jobs",
+                      timeout=self.global_config.get("barrier_timeout"))
+        elapsed = time.time() - self._attempt_t0
+
+        check_jobs = ([0] if global_job else
+                      [j for j in range(n_jobs) if job_blocks[j]])
+        # consensus WITHOUT messages: every process parses the same shared
+        # logs (complete — everyone passed the jobs barrier) and derives
+        # the identical verdict and failed-block list.  ALL parsing must
+        # happen BEFORE the verdict barrier: a fast peer's retry
+        # OVERWRITES its job log with a success log, and a slow peer
+        # parsing it late would derive a different (smaller) failed-block
+        # list — its shard assignment would then silently drop blocks
+        failed = [j for j in check_jobs
+                  if not parse_job_success(self.log_path(j), j)]
+        processed: Set[int] = set()
+        if failed and not global_job:
+            for j in check_jobs:
+                if j in failed:
+                    processed |= parse_processed_blocks(self.log_path(j))
+                else:
+                    processed |= set(job_blocks[j] or [])
+        mh.fs_barrier(self.tmp_folder, f"{self.name_with_id}_verdict")
+        if failed:
+            retryable = (self.allow_retry and not global_job
+                         and self._retry_count < int(
+                             self.global_config.get("max_num_retries", 0))
+                         and len(failed) <= len(check_jobs) / 2)
+            if not retryable:
+                self._fail([j for j in failed if j == pid] or failed)
+            failed_blocks = [b for b in block_list if b not in processed]
+            self._retry_count += 1
+            log(f"{self.name_with_id}: multiprocess retry "
+                f"{self._retry_count} with {len(failed_blocks)} failed "
+                "blocks")
+            return self._run_jobs_multiprocess(
+                failed_blocks, task_specific_config, n_jobs,
+                consecutive_blocks=consecutive_blocks)
+        if mh.is_lead():
+            # single writer for the shared status file; its stages cover
+            # the lead's own jobs (peers' inline stages stay local)
+            self._write_status(n_jobs, block_list, elapsed,
+                               stages_delta(stages_before),
+                               bytes_delta(self._attempt_bytes),
+                               counts_delta(self._attempt_counts))
+        # peers must not observe the task incomplete (build() verifies
+        # the target right after run) — wait for the lead's write
+        mh.fs_barrier(self.tmp_folder, f"{self.name_with_id}_status")
+
     def _fail(self, failed_jobs: List[int]) -> None:
         # rename logs to *_failed.log so the target stays invalid and a driver
         # rerun redoes this task (reference: cluster_tasks.py:143-151)
@@ -1122,6 +1282,17 @@ class BlockTask(Task):
             "ledger": ledger_snapshot(),
             "correlation_id": self._corr_id,
         }
+        # fields a job recorded for the status itself (status_fields: a
+        # mesh-aware task's shards and distinct devices)
+        for j in range(n_jobs):
+            status.update(parse_status_fields(self.log_path(j)))
+        # multi-process runs are self-describing per process: which
+        # process wrote this status, out of how many
+        from ..parallel import multihost as mh
+
+        if mh.process_count() > 1:
+            status["process_index"] = mh.process_index()
+            status["process_count"] = mh.process_count()
         config_mod.write_config(self.output().path, status)
 
     # -- worker side ----------------------------------------------------

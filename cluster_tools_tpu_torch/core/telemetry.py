@@ -63,7 +63,8 @@ STAGE_REGISTRY = {
     "dispatch",         # device work enqueue
     "cap-retry",        # pair-capacity overflow redo
     "h2d-upload",       # host -> device volume uploads
-    "d2h-compact", "d2h-dense", "d2h-edges", "d2h-rle",  # device -> host
+    # device -> host
+    "d2h-compact", "d2h-dense", "d2h-edges", "d2h-labels", "d2h-rle",
     "device-cc", "device-rle", "device-ws-redo",
     # host path (never device time)
     "host-build", "host-compact", "host-decode", "host-densify",
@@ -1159,13 +1160,18 @@ def flight_record(directory: str, reason: str,
     global _FLIGHT_COUNT
     os.makedirs(directory, exist_ok=True)
     spans = spans_snapshot()[-int(max_spans):]
+    # which process of a multi-process run dumped it (multihost.py)
+    try:
+        from ..parallel import multihost
+        pidx, pcnt = multihost.process_index(), multihost.process_count()
+    except Exception:
+        pidx, pcnt = 0, 1
     payload = {
         "reason": str(reason),
         "unix_time": time.time(),
         "host_pid": os.getpid(),
-        # one process owns the card (multi-process runs are ROADMAP A14)
-        "process_index": 0,
-        "process_count": 1,
+        "process_index": pidx,
+        "process_count": pcnt,
         "dropped_spans": dropped_count(),
         "n_spans": len(spans),
         "memory": {

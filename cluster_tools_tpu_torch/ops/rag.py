@@ -319,6 +319,57 @@ def _hist_finish(hist, u_o, v_o, run_id, valid, n_runs, e_max: int):
     return uv, feats, torch.clamp(n_runs, max=e_max), overflow
 
 
+def plane_face_pairs(lab_a: torch.Tensor, lab_b: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None,
+                     ignore_label: bool = True):
+    """Face pairs between two OPPOSING boundary planes of adjacent
+    subproblems (blocks or mesh shards): ``lab_a[i]`` and ``lab_b[i]`` are
+    the labels of the two voxels straddling the face (the device form of
+    the host face scan; the mesh-resident chain feeds it the neighbour
+    shard's received first plane).  Returns flat ``(u, v, ok)`` with
+    u < v where ``ok``, zeros elsewhere; ``valid`` masks out subproblems
+    without a real upper neighbour (the pair (i, i+1) belongs to the
+    subproblem owning voxel i)."""
+    ok = lab_a != lab_b
+    if ignore_label:
+        ok &= (lab_a != 0) & (lab_b != 0)
+    if valid is not None:
+        ok &= valid
+    u = torch.minimum(lab_a, lab_b).reshape(-1)
+    v = torch.maximum(lab_a, lab_b).reshape(-1)
+    m = ok.reshape(-1)
+    return torch.where(m, u, 0), torch.where(m, v, 0), m
+
+
+def edge_stats_hist_dual(u: torch.Tensor, v: torch.Tensor,
+                         bins_a: torch.Tensor, bins_b: torch.Tensor,
+                         ok: torch.Tensor, e_max: int):
+    """Histogram edge statistics over DUAL-sample pairs
+    (``_edge_stats_hist_dual``): each compacted slot carries the boundary
+    bytes of both face sides; ids are unrestricted (the mesh-resident
+    chain's global labels), so the pairs group by an int64 (u, v) key
+    instead of :func:`edge_stats_hist_packed`'s packed one.  Returns
+    ``(uv int32 (e_max, 2), feats float32 (e_max, 10), n_runs,
+    overflow)``."""
+    u_s = torch.where(ok, u, _BIG)
+    v_s = torch.where(ok, v, _BIG)
+    key = u_s.to(torch.int64) * (2 ** 31) + v_s.to(torch.int64)
+    k_o, order = torch.sort(key, stable=True)
+    u_o, v_o = u_s[order], v_s[order]
+    ba = bins_a[order].to(torch.int64)
+    bb = bins_b[order].to(torch.int64)
+    valid = u_o != _BIG
+    run_id, n_runs, _ = _runs(k_o, valid, e_max)
+    in_run = run_id < e_max
+    rid = run_id.to(torch.int64)
+    size = e_max * 256 + 1
+    hidx_a = torch.where(in_run, rid * 256 + ba, e_max * 256)
+    hidx_b = torch.where(in_run, rid * 256 + bb, e_max * 256)
+    hist = (torch.bincount(hidx_a, minlength=size)
+            + torch.bincount(hidx_b, minlength=size))
+    return _hist_finish(hist, u_o, v_o, run_id, valid, n_runs, e_max)
+
+
 def edge_stats_hist_packed(key: torch.Tensor, vab: torch.Tensor,
                            ok: torch.Tensor, e_max: int):
     """Histogram edge statistics over PACKED dual-sample pairs

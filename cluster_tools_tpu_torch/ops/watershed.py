@@ -45,11 +45,22 @@ _F32_MAX = float(np.finfo(np.float32).max)
 JUMP_CHECK_EVERY = 4
 
 
-def extent_valid_mask(local_shape, extent, device=None) -> torch.Tensor:
-    """Validity mask over a block-local window: positions at or past the
-    per-axis REAL size ``extent`` of a clipped border block are invalid
-    (their reflect-padded content must never enter label ranks, id counts
-    or pair sets)."""
+def extent_valid_mask(local_shape, extent=None, device=None, origin=None,
+                      vol_shape=None) -> torch.Tensor:
+    """Validity mask over a block- or shard-local window.
+
+    Two conventions, one mask: pass ``extent`` (per-axis REAL size of a
+    clipped border block — the blockwise chain's convention), or a
+    shard-local ``origin`` plus the global ``vol_shape`` — the
+    mesh-resident convention, where a shard's window may overrun the
+    volume end by the shard-equalizing pad.  Positions at or past the
+    volume end are invalid (their reflect-padded content must never enter
+    label ranks, id counts or pair sets)."""
+    if extent is None:
+        if origin is None or vol_shape is None:
+            raise ValueError("pass extent, or origin + vol_shape")
+        extent = [int(vol_shape[d]) - int(origin[d])
+                  for d in range(len(local_shape))]
     valid = torch.ones(tuple(local_shape), dtype=torch.bool, device=device)
     for d, n in enumerate(local_shape):
         shape_d = [1] * len(local_shape)

@@ -39,7 +39,14 @@ them from the store.
 The device is the global config's ``"device"`` (default ``"cuda"``): a run
 that asks for the card on a machine without one raises; nothing falls back
 to the CPU, and ``hybrid`` raises without a C++ compiler.
-``mesh_resident`` is not ported (ROADMAP A14) and raises.
+Task config ``mesh_resident: true`` kills the per-block loop: the volume
+splits into z-slabs over the shard devices (the global config's
+``mesh_devices``) and :func:`mesh_resident_program` runs the whole chain
+with halos over a ring, label offsets from a scan of the shard counts and
+the cross-shard faces on the device (one slab == one problem block; no
+face-assembly pass).  Under ``target="mesh"`` the streamed path places
+block i on shard device i mod n and drains in block order, bitwise equal
+to the inline run.
 """
 
 from __future__ import annotations
@@ -368,6 +375,270 @@ class _Download:
 
 
 # ---------------------------------------------------------------------------
+# the mesh-resident chain: the whole volume split into z-slabs over a 1-d
+# device mesh (one subproblem per shard), watershed + RAG + edge statistics
+# per shard, with the reduce as collectives instead of host stitching: halos
+# over the ring of parallel/stencil.py, label offsets from an exclusive scan
+# of the per-shard counts, cross-shard face edges from the next shard's
+# received first plane, joined into the same edge reduction as the interior
+# pairs.  No per-block dispatch, no halo re-upload, no FusedFaceAssembly.
+# ---------------------------------------------------------------------------
+
+
+def mesh_slab_block_shape(shape, n_shards: int):
+    """The slab decomposition of the mesh-resident path: z split into
+    ``n_shards`` equal slabs (the last one clipped), y/x unsplit."""
+    slab_z = -(-int(shape[0]) // int(n_shards))
+    return [int(slab_z), int(shape[1]), int(shape[2])]
+
+
+def mesh_resident_block_shape(config_dir: str, input_path: str,
+                              input_key: str):
+    """Slab block shape the fused chain will use under the
+    ``mesh_resident`` task config, or None when the chain runs blockwise.
+    Workflows call this at DAG-construction time so every downstream task
+    (sub-graph merge, edge-id map, feature join, assignment write)
+    iterates the slab grid the mesh program produced."""
+    from ..core.config import ConfigDir
+
+    cdir = ConfigDir(config_dir)
+    cfg = cdir.task_config("fused_segmentation",
+                           FusedSegmentationBlocks.default_task_config())
+    if not cfg.get("mesh_resident") or cfg.get("ws_method",
+                                               "device") != "device":
+        return None
+    try:
+        with file_reader(input_path, "r") as f:
+            shape = list(f[input_key].shape)
+    except (OSError, KeyError, ValueError):
+        return None
+    if len(shape) != 3:
+        return None
+    n = len(mesh_shard_devices(cfg, cdir.global_config()))
+    return mesh_slab_block_shape(shape, n)
+
+
+def mesh_shard_devices(cfg: Dict[str, Any],
+                       global_config: Dict[str, Any]) -> list:
+    """The mesh-resident chain's shards: one z-slab per shard device of
+    the global config (``device`` and ``mesh_devices``).  The task key
+    ``mesh_shards`` stays only so one config directory reads the same in
+    both packages; it must be 0 or the shard count."""
+    from ..parallel.mesh import config_devices
+
+    devices = config_devices(global_config)
+    n = int(cfg.get("mesh_shards") or 0)
+    if n and n != len(devices):
+        raise ValueError(
+            f"mesh_shards={n} differs from the {len(devices)} shard "
+            "devices: set the global config's mesh_devices instead")
+    return devices
+
+
+@dataclass(frozen=True)
+class MeshParams:
+    """Everything the mesh-resident program depends on besides the slabs
+    (the JAX package's ``_mesh_resident_program`` args)."""
+    n_shards: int
+    slab_z: int
+    vol_shape: tuple
+    halo: tuple         # (hz, hy, hx), clamped to size - 1
+    is_u8: bool
+    threshold: float
+    sigma_seeds: float
+    sigma_weights: float
+    alpha: float
+    min_size: int
+    e_max: int
+    refine_rounds: int
+    pair_cap: int
+    coarse_factor: int
+
+
+def mesh_params(cfg, shape, n_shards: int, halo, is_u8: bool, e_max: int,
+                n_fine_blocks: int) -> MeshParams:
+    """The mesh-resident program's parameters for ``shape`` split into
+    ``n_shards`` slabs, from the fused task config ``cfg``.  Reflect
+    padding (slab ends, y/x) mirrors around the border plane, so the halo
+    is capped at size - 1 on every axis.  The capacities scale with the
+    slab, not the block: ``e_max`` times the blocks per shard, and the
+    slab's pairs (doubled for float input's two samples) over 6, rounded
+    up to a power of two; ``mesh_e_max`` / ``mesh_pair_cap`` override
+    them (an overflow is a hard error naming the knob)."""
+    slab_z = -(-int(shape[0]) // int(n_shards))
+    e_mesh = int(cfg.get("mesh_e_max") or 0) or \
+        int(e_max) * max(-(-n_fine_blocks // n_shards), 1)
+    pair_cap = int(cfg.get("mesh_pair_cap") or 0)
+    if not pair_cap:
+        n_pairs = 3 * slab_z * int(shape[1]) * int(shape[2])
+        if not is_u8:
+            n_pairs *= 2
+        pair_cap = max(1 << int(np.ceil(np.log2(max(n_pairs // 6, 2)))),
+                       1 << 14)
+    return MeshParams(
+        n_shards=int(n_shards), slab_z=slab_z,
+        vol_shape=tuple(int(s) for s in shape),
+        halo=(min(int(halo[0]), max(slab_z - 1, 0)),
+              min(int(halo[1]), int(shape[1]) - 1),
+              min(int(halo[2]), int(shape[2]) - 1)), is_u8=is_u8,
+        threshold=float(cfg.get("threshold", 0.25)),
+        sigma_seeds=float(cfg.get("sigma_seeds", 2.0)),
+        sigma_weights=float(cfg.get("sigma_weights", 2.0)),
+        alpha=float(cfg.get("alpha", 0.8)),
+        min_size=int(cfg.get("size_filter", 25) or 0), e_max=e_mesh,
+        refine_rounds=int(cfg.get("refine_rounds", 3)), pair_cap=pair_cap,
+        coarse_factor=int(cfg.get("coarse_factor", 2)))
+
+
+def _reflect_pad_yx(x: torch.Tensor, hy: int, hx: int) -> torch.Tensor:
+    """numpy ``reflect`` padding of the y and x axes (border plane
+    excluded), by index: exact for every dtype."""
+    for axis, h in ((1, hy), (2, hx)):
+        if h:
+            idx = np.pad(np.arange(x.shape[axis]), (h, h), mode="reflect")
+            x = torch.index_select(x, axis, torch.from_numpy(idx).to(
+                x.device))
+    return x
+
+
+def _mesh_front(grown: torch.Tensor, sid: int, p: MeshParams):
+    """Phase (a) of one shard: the chain on its z-grown slab up to the
+    dense relabel.  Returns ``(dense_grid, k, ok, xin)``: the int32 dense
+    inner labels, their count, the watershed's capacity flag and the
+    shard's raw inner input."""
+    from ..ops.watershed import coarse, dense_relabel, extent_valid_mask
+
+    hz, hy, hx = p.halo
+    Z, Y, X = p.vol_shape
+    x = _reflect_pad_yx(grown, hy, hx)
+    xf = _normalized(x)
+    rp = ResidentParams(
+        outer_shape=tuple(x.shape), halo=tuple(p.halo), is_u8=p.is_u8,
+        threshold=p.threshold, sigma_seeds=p.sigma_seeds,
+        sigma_weights=p.sigma_weights, alpha=p.alpha, min_size=p.min_size,
+        e_max=p.e_max, rle_cap=1, refine_rounds=p.refine_rounds)
+    height, seeds = _height_and_seeds(xf, rp)
+    del xf
+    # same watershed core as the blockwise chain, at slab scope
+    ws, ok = coarse(height, seeds, p.min_size, p.refine_rounds,
+                    p.coarse_factor, dense_ids=True)
+    del height, seeds
+    cf = p.coarse_factor
+    cn_bound = int(np.prod([-(-o // cf) for o in x.shape]))
+    inner = ws[hz:hz + p.slab_z, hy:hy + Y, hx:hx + X]
+    # shard-local origin -> validity: the shard-equalizing z-pad (and
+    # nothing else — y/x span the volume) never enters the ranks
+    valid = extent_valid_mask((p.slab_z, Y, X), origin=[sid * p.slab_z, 0, 0],
+                              vol_shape=(Z, Y, X), device=x.device)
+    dense_grid, k = dense_relabel(inner, cn_bound, valid=valid)
+    xin = x[hz:hz + p.slab_z, hy:hy + Y, hx:hx + X].contiguous()
+    return dense_grid, k, ok, xin
+
+
+def _mesh_stats(lab: torch.Tensor, xin: torch.Tensor,
+                recv_lab: torch.Tensor, recv_x: torch.Tensor,
+                has_next: bool, p: MeshParams):
+    """Phase (c) of one shard: interior pairs of its global labels plus the
+    face pairs with the next shard's first plane, compacted once, and the
+    edge statistics.  Returns ``(uv, feats, n_runs, e_over, cap_over)``."""
+    from ..ops.rag import (boundary_pair_values, boundary_pair_values_dual,
+                           compact_valid, edge_stats_device,
+                           edge_stats_hist_dual, plane_face_pairs)
+
+    last = p.slab_z - 1
+    # the pair (i, i+1) belongs to the shard owning voxel i: only shards
+    # with a next shard contribute face pairs
+    has = torch.full(tuple(lab.shape[1:]), bool(has_next),
+                     device=lab.device)
+    fu, fv, fok = plane_face_pairs(lab[last], recv_lab, valid=has)
+    if p.is_u8:
+        # dual-sample pairs, exact 256-bin histogram statistics; face
+        # samples are (my last plane byte, the next shard's first plane
+        # byte), FusedFaceAssembly's two-sided convention
+        u, v, va, vb, okp = boundary_pair_values_dual(lab, xin)
+        vab = va.to(torch.int32) * 256 + vb.to(torch.int32)
+        fvab = (xin[last].to(torch.int32) * 256
+                + recv_x.to(torch.int32)).reshape(-1)
+        (cu, cv, cvab), cok, cap_over = compact_valid(
+            torch.cat([okp, fok]), [torch.cat([u, fu]), torch.cat([v, fv]),
+                                    torch.cat([vab, fvab])], p.pair_cap)
+        uv, feats, n_runs, e_over = edge_stats_hist_dual(
+            cu, cv, cvab >> 8, cvab & 255, cok, p.e_max)
+    else:
+        # float inputs: sorted-position path, two samples per pair (each
+        # face pair twice, once per side sample)
+        u, v, vals, okp = boundary_pair_values(lab, xin)
+        fvals = torch.cat([xin[last].reshape(-1), recv_x.reshape(-1)])
+        (cu, cv, cvals), cok, cap_over = compact_valid(
+            torch.cat([okp, fok, fok]),
+            [torch.cat([u, fu, fu]), torch.cat([v, fv, fv]),
+             torch.cat([vals, fvals])], p.pair_cap)
+        uv, feats, n_runs, e_over = edge_stats_device(cu, cv, cvals, cok,
+                                                      p.e_max)
+    return uv, feats, n_runs, e_over, cap_over
+
+
+def mesh_resident_program(slabs, p: MeshParams):
+    """The whole volume's chain over the shards ``slabs`` (shard i the
+    ``(slab_z, Y, X)`` slab i of the z-padded volume, on its device), in
+    three phases with the collectives between them:
+
+    (a) per shard: the z-halo over the ring (reflect at the outer ends),
+        y/x reflect, normalize, EDT (the CUDA min-plus kernel on the card:
+        3 launches per shard), Gaussians, maxima, seed CC, the coarse
+        watershed at slab scope, the dense relabel with the shard-origin
+        validity mask — one shard at a time, keeping only its labels and
+        inner input, so the shards' working sets never coexist;
+    (b) the exclusive scan of the per-shard counts gives the label offsets
+        (on the first shard's device, then one scalar to each shard);
+    (c) per shard: the next shard's first label and input planes received
+        (real copies), the face pairs, and the edge statistics.
+
+    Returns per-shard lists ``(labs, metas, uvs, feats)``: ``labs`` int32
+    global labels, ``metas`` int64 ``[k, n_runs, e_over, cap_over, ok]``,
+    ``uvs`` ``(e_max, 2)``, ``feats`` ``(e_max, 10)``, each on its shard's
+    device."""
+    from ..parallel.mesh import send
+    from ..parallel.stencil import grow_shard
+
+    n = p.n_shards
+    hz = p.halo[0]
+    fronts = []
+    for sid in range(n):
+        # this shard's part of the ring exchange: its neighbours' slabs
+        fronts.append(_mesh_front(grow_shard(slabs, sid, hz, 0,
+                                             mode="reflect"), sid, p))
+    dev0 = slabs[0].device
+    ks = torch.stack([send(f[1].reshape(()).to(torch.int64), dev0)
+                      for f in fronts])
+    offs = torch.cumsum(ks, 0) - ks
+    labs = []
+    for sid, (dense_grid, _, _, _) in enumerate(fronts):
+        off = send(offs[sid], dense_grid.device).to(torch.int32)
+        labs.append(torch.where(dense_grid > 0, dense_grid + off, 0))
+    metas, uvs, feats_all = [], [], []
+    for sid in range(n):
+        lab = labs[sid]
+        dense_grid, k, ok, xin = fronts[sid]
+        if sid < n - 1:
+            recv_lab = send(labs[sid + 1][0], lab.device)
+            recv_x = send(fronts[sid + 1][3][0], lab.device)
+        else:
+            recv_lab = torch.zeros_like(lab[0])
+            recv_x = xin[0]
+        uv, feats, n_runs, e_over, cap_over = _mesh_stats(
+            lab, xin, recv_lab, recv_x, sid < n - 1, p)
+        metas.append(torch.stack([
+            k.reshape(()).to(torch.int64), n_runs.reshape(()).to(torch.int64),
+            e_over.reshape(()).to(torch.int64),
+            cap_over.reshape(()).to(torch.int64),
+            ok.reshape(()).to(torch.int64)]))
+        uvs.append(uv)
+        feats_all.append(feats)
+    return labs, metas, uvs, feats_all
+
+
+# ---------------------------------------------------------------------------
 # host fallback
 # ---------------------------------------------------------------------------
 
@@ -436,9 +707,6 @@ class FusedSegmentationBlocks(BlockTask):
         if method not in ("device", "hybrid", "legacy"):
             raise ValueError(f"unknown ws_method {method!r} (expected "
                              "'device', 'hybrid' or 'legacy')")
-        if self.task_config.get("mesh_resident"):
-            raise NotImplementedError(
-                "mesh_resident is not ported yet (ROADMAP A14)")
 
     @staticmethod
     def default_task_config():
@@ -466,7 +734,12 @@ class FusedSegmentationBlocks(BlockTask):
             # the main thread waits on the NEXT block's device work.
             # 0 = fully sequential drain (bit-identical reference mode)
             "writer_threads": 4,
-            # the JAX package's mesh-resident SPMD mode (not ported)
+            # mesh-resident mode: the volume split into z-slabs over the
+            # shard devices and the WHOLE chain run as one mesh program
+            # (one subproblem per shard device: the global config's
+            # mesh_devices; mesh_shards is 0 or that count, see
+            # mesh_shard_devices); mesh_e_max / mesh_pair_cap 0 = the
+            # blockwise knobs scaled to the slab
             "mesh_resident": False, "mesh_shards": 0,
             "mesh_e_max": 0, "mesh_pair_cap": 0,
         })
@@ -516,7 +789,8 @@ class FusedSegmentationBlocks(BlockTask):
             log_fn("resident device path needs a 3d scalar store; "
                    "using the legacy streamed path")
             method = "legacy"
-        impl = {"device": cls._process_device,
+        impl = {"device": (cls._process_mesh if cfg.get("mesh_resident")
+                           else cls._process_device),
                 "hybrid": cls._process_hybrid,
                 "legacy": cls._process_legacy}[method]
         impl(job_config, log_fn, blocking, halo, outer_shape, e_max, ds_in,
@@ -540,7 +814,8 @@ class FusedSegmentationBlocks(BlockTask):
         running label offset."""
         from ..core import telemetry
         from ..core.runtime import (stage, stage_add, stage_bytes,
-                                    stream_window, writer_pool)
+                                    status_fields, stream_window,
+                                    writer_pool)
         from ..ops.edt import build_kernel
         from ..ops.sweep import rle_decode_packed
 
@@ -598,16 +873,12 @@ class FusedSegmentationBlocks(BlockTask):
             stage_add("store-write", time.perf_counter() - t0)
             stage_bytes("store-write", arr.nbytes)
 
-        def _run(bid, p):
+        def _run(bid, p, vol=None):
             block = blocking.get_block(bid)
             extent = [e - b for b, e in zip(block.begin, block.end)]
-            tbl, packed, dense_grid = resident_block(vol_dev, block.begin,
-                                                     extent, p)
+            tbl, packed, dense_grid = resident_block(
+                vol_dev if vol is None else vol, block.begin, extent, p)
             return _Download(tbl, packed), dense_grid
-
-        def submit(bid):
-            with stage("dispatch"):
-                return bid, _run(bid, params)
 
         def _complete(bid, block, real, off, k_i, dense_np, uv_np,
                       feats_np):
@@ -708,10 +979,194 @@ class FusedSegmentationBlocks(BlockTask):
                             feats_np)
 
         block_ids = list(job_config["block_list"])
+        window = int(cfg.get("stream_window", 3))
+        vols = [vol_dev]
+        if job_config.get("target") == "mesh":
+            # the mesh target: block i runs on shard device i mod n against
+            # the volume resident there, in the same stream with at least
+            # two blocks per shard in flight; the drain stays in block
+            # order, so offsets and staging equal the one-device run's
+            from ..parallel.mesh import blocks_mesh, config_devices, send
+
+            mesh = blocks_mesh(devices=config_devices(
+                job_config["global_config"]))
+            status_fields(log_fn, mesh_devices=mesh.size,
+                          physical_devices=mesh.physical_devices)
+            # the padded volume once per distinct device (a real copy on
+            # every device but the first)
+            copies = {str(vol_dev.device): vol_dev}
+            for d in mesh.device_list:
+                if str(d) not in copies:
+                    copies[str(d)] = send(vol_dev, d)
+            vols = [copies[str(d)] for d in mesh.device_list]
+            window = max(window, 2 * mesh.size)
+
+        def submit(item):
+            i, bid = item
+            with stage("dispatch"):
+                return bid, _run(bid, params, vols[i % len(vols)])
+
         with writer_pool(cfg, ds_out) as finisher:
-            for _ in stream_window(block_ids, submit, drain,
-                                   window=int(cfg.get("stream_window", 3))):
+            for _ in stream_window(enumerate(block_ids), submit, drain,
+                                   window=window):
                 pass
+
+    @classmethod
+    def _process_mesh(cls, job_config, log_fn, blocking, halo, outer_shape,
+                      e_max, ds_in, ds_out, tmp_folder, state, max_ids):
+        """Mesh-resident driver: upload the z-padded volume SPLIT over the
+        shard devices once, run :func:`mesh_resident_program` for the whole
+        volume, and consume complete per-shard results — globally labelled
+        fragments and per-shard edge/feature tables that already include
+        the cross-shard faces.  The host's remaining work is slab writes,
+        sub-graph/feature staging (one slab == one problem block) and the
+        fragment cache for the final assignment write; the device is
+        waited on once for the whole volume (``sync-execute``)."""
+        from ..core import telemetry
+        from ..core.runtime import stage, stage_add, stage_bytes, \
+            status_fields, writer_pool
+        from ..ops.edt import build_kernel
+        from ..parallel.mesh import Placement, shard, single_axis_mesh
+        from .watershed import _normalize_input, reflect_indices
+
+        cfg = job_config["config"]
+        shape = cfg["shape"]
+        slab_bs = list(cfg["block_shape"])     # one slab per shard
+        slab_z = int(slab_bs[0])
+        devices = mesh_shard_devices(cfg, job_config["global_config"])
+        n_shards = len(devices)
+        if mesh_slab_block_shape(shape, n_shards) != slab_bs:
+            # the task was built without the slab blocking the mesh
+            # program produces (FusedProblemWorkflow wires it through the
+            # block_shape override): the blockwise path is always valid
+            log_fn("mesh_resident set but task blocking is not the slab "
+                   "grid; using the streamed per-block path")
+            return cls._process_device(job_config, log_fn, blocking, halo,
+                                       outer_shape, e_max, ds_in, ds_out,
+                                       tmp_folder, state, max_ids)
+        mesh = single_axis_mesh("shard", n_shards, devices=devices)
+        log_fn(f"mesh-resident: {n_shards} shards on "
+               f"{mesh.physical_devices} device(s)")
+        status_fields(log_fn, mesh_devices=mesh.size,
+                      physical_devices=mesh.physical_devices)
+        if any(d.type == "cuda" for d in mesh.device_list):
+            with stage("host-build"):
+                build_kernel()
+
+        with stage("store-read"):
+            vol = ds_in[...]
+        stage_bytes("store-read", vol.nbytes)
+        mx = float(vol.max()) if vol.size else 0.0
+        is_u8 = (vol.dtype == np.uint8 and mx > 1
+                 and not cfg.get("invert_inputs", False))
+        scale = 255.0 if (mx > 1.0 and mx <= 255) else (mx if mx > 1.0
+                                                        else 1.0)
+        write_config(os.path.join(tmp_folder, "fused_input_scale.json"),
+                     {"scale": scale,
+                      "invert": bool(cfg.get("invert_inputs", False))})
+        if not is_u8:
+            vol = _normalize_input(vol.astype("float32"), cfg).astype(
+                "float32")
+        _raw_cache_put((os.path.abspath(cfg["input_path"]),
+                        cfg["input_key"]), vol, is_u8)
+
+        # equalize the shards: pad z to n_shards * slab_z by VOLUME-level
+        # reflection (the blockwise readers' fold; the padded planes are
+        # masked out of ranks and pair sets on the device)
+        Zp = n_shards * slab_z
+        volp = (vol[reflect_indices(0, Zp, shape[0])] if Zp > shape[0]
+                else vol)
+
+        fine_bs = job_config["global_config"]["block_shape"]
+        params = mesh_params(cfg, shape, n_shards, halo, is_u8, e_max,
+                             Blocking(shape, fine_bs[-3:]).n_blocks)
+        log_fn(f"mesh-resident capacities: e_max {params.e_max} pair_cap "
+               f"{params.pair_cap}")
+
+        with stage("h2d-upload"):
+            slabs = shard(torch.from_numpy(np.ascontiguousarray(volp)),
+                          mesh, Placement(("shard",)))
+        stage_bytes("h2d-upload", volp.nbytes)
+
+        with stage("dispatch"):
+            labs, metas, uvs, feats = mesh_resident_program(slabs, params)
+            del slabs
+            dl_meta = _Download(torch.stack([m.to(metas[0].device)
+                                             for m in metas]))
+        # ONE steady-state wait for the whole volume (the per-block path
+        # waits once per block)
+        with stage("sync-execute"):
+            meta = dl_meta.wait()[0].astype("int64")   # (n_shards, 5)
+        stage_bytes("sync-execute", meta.nbytes)
+
+        ks = meta[:, 0]
+        if not meta[:, 4].all():
+            raise RuntimeError(
+                "mesh-resident watershed capacity exceeded on shards "
+                f"{np.flatnonzero(meta[:, 4] == 0).tolist()} — run with "
+                "mesh_resident=false (the blockwise path has a host "
+                "fallback) or shrink the volume per shard")
+        if (meta[:, 3] > 0).any():
+            raise RuntimeError("mesh-resident pair compaction overflow "
+                               f"(cap={params.pair_cap}) — raise "
+                               "mesh_pair_cap")
+        if (meta[:, 2] > 0).any():
+            raise RuntimeError("mesh-resident edge capacity exceeded "
+                               f"(e_max={params.e_max}) — raise "
+                               "mesh_e_max")
+
+        offs = np.concatenate([[0], np.cumsum(ks)]).astype("uint64")
+        with stage("d2h-labels"):
+            lab = np.concatenate([t.cpu().numpy() for t in labs])[:shape[0]]
+            n_runs = meta[:, 1]
+            uv_all = [u[:int(n)].cpu().numpy() for u, n in zip(uvs, n_runs)]
+            feats_all = [f[:int(n)].cpu().numpy().astype("float64")
+                         for f, n in zip(feats, n_runs)]
+        stage_bytes("d2h-labels", lab.nbytes)
+        del labs, uvs, feats
+
+        ws_cache_key = (os.path.abspath(cfg["output_path"]),
+                        cfg["output_key"])
+
+        def _write(bb, arr):
+            t0 = time.perf_counter()
+            ds_out[bb] = arr
+            stage_add("store-write", time.perf_counter() - t0)
+            stage_bytes("store-write", arr.nbytes)
+
+        def _drain_slab(sid, pool):
+            block = blocking.get_block(sid)
+            off, k_i = int(offs[sid]), int(ks[sid])
+            sl = lab[block.bb]
+            local = np.where(sl > 0, sl.astype("int64") - off, 0)
+            local = local.astype("uint16" if k_i < 65536 else "uint32")
+            _fragment_cache_put(ws_cache_key + (sid,), local, off, block.bb)
+            pool.submit(_write, block.bb, sl.astype("uint64"))
+            uv_np = uv_all[sid].astype("uint64")
+            feats_np = feats_all[sid]
+            order = np.lexsort((uv_np[:, 1], uv_np[:, 0]))
+            uv_np, feats_np = uv_np[order], feats_np[order]
+            np.savez(_staged_path(tmp_folder, sid), uv=uv_np,
+                     feats=feats_np, k=np.int64(k_i), offset=np.uint64(off))
+            # the shard tables are already COMPLETE sub-graphs (the device
+            # added the cross-shard faces): save them now — there is no
+            # FusedFaceAssembly pass on this path
+            nodes = np.arange(off + 1, off + k_i + 1, dtype="uint64")
+            if len(uv_np):
+                nodes = np.unique(np.concatenate([nodes, uv_np.ravel()]))
+            g.save_sub_graph(cfg["problem_path"], 0, sid, nodes, uv_np)
+            np.savez(_staged_path(tmp_folder, sid) + ".full.npz",
+                     uv=uv_np, feats=feats_np)
+            max_ids[sid] = k_i
+            log_fn(f"processed block {sid}")
+
+        with writer_pool(cfg, ds_out) as pool:
+            for sid in range(blocking.n_blocks):
+                with telemetry.span(f"slab:{sid}", cat="block",
+                                    block=sid) as sp:
+                    _drain_slab(sid, pool)
+                    telemetry.annotate_memory(sp)
+        state["offset"] = np.uint64(offs[-1])
 
     @staticmethod
     def _write_dense(ds_out, block, dense, off):
@@ -1139,33 +1594,44 @@ class FusedProblemWorkflow(Task):
         from .features import MergeEdgeFeatures
         from .graph import MapEdgeIds, MergeSubGraphs
 
+        # mesh-resident mode: ONE z-slab subproblem per shard — every task
+        # below iterates the slab grid the mesh program produced (the
+        # device already added the cross-shard faces, so the host face
+        # assembly drops out of the DAG)
+        mesh_bs = mesh_resident_block_shape(
+            self.config_dir, self.input_path, self.input_key)
+        bs_kw = {"block_shape": mesh_bs} if mesh_bs else {}
+
         fused = FusedSegmentationBlocks(
             input_path=self.input_path, input_key=self.input_key,
             output_path=self.ws_path, output_key=self.ws_key,
             problem_path=self.problem_path, dependency=self.dependency,
-            **self._common())
-        faces = FusedFaceAssembly(
-            input_path=self.input_path, input_key=self.input_key,
-            ws_path=self.ws_path, ws_key=self.ws_key,
-            problem_path=self.problem_path, dependency=fused,
-            **self._common())
+            **bs_kw, **self._common())
+        if mesh_bs:
+            faces = fused
+        else:
+            faces = FusedFaceAssembly(
+                input_path=self.input_path, input_key=self.input_key,
+                ws_path=self.ws_path, ws_key=self.ws_key,
+                problem_path=self.problem_path, dependency=fused,
+                **self._common())
         merge = MergeSubGraphs(
             graph_path=self.problem_path, scale=0,
             merge_complete_graph=True, output_key="s0/graph",
             input_path=self.ws_path, input_key=self.ws_key,
-            dependency=faces, **self._common())
+            dependency=faces, **bs_kw, **self._common())
         mapped = MapEdgeIds(
             graph_path=self.problem_path, scale=0, graph_key="s0/graph",
             input_path=self.ws_path, input_key=self.ws_key,
-            dependency=merge, **self._common())
+            dependency=merge, **bs_kw, **self._common())
         feat_ids = FeatureTablesToIds(
             ws_path=self.ws_path, ws_key=self.ws_key,
             problem_path=self.problem_path, dependency=mapped,
-            **self._common())
+            **bs_kw, **self._common())
         merged_feats = MergeEdgeFeatures(
             graph_path=self.problem_path, graph_key="s0/graph",
             output_path=self.problem_path, output_key="features",
-            dependency=feat_ids, **self._common())
+            dependency=feat_ids, **bs_kw, **self._common())
         if not self.compute_costs:
             return merged_feats
         return EdgeCostsWorkflow(

@@ -17,8 +17,8 @@ load->preprocess->predict->write pipeline overlapping IO and the device
 * a prefetch pool reads upcoming blocks, the main thread streams them
   through the device, a writer pool commits the outputs.
 
-The multi-device variant (``predict_sharded``) is not ported yet (ROADMAP
-A14).
+``predict_sharded`` runs a batch of outer blocks split over the devices of
+a mesh (one model per distinct device).
 """
 
 from __future__ import annotations
@@ -324,8 +324,37 @@ class InferenceTask(BlockTask):
 
 def predict_sharded(checkpoint_path: str, volume: np.ndarray,
                     n_devices: Optional[int] = None,
-                    preprocess: str = "standardize") -> np.ndarray:
-    """The multi-device batch of outer blocks is not ported yet."""
-    raise NotImplementedError(
-        "predict_sharded (blocks sharded over several devices) is not "
-        "ported yet (ROADMAP A14)")
+                    preprocess: str = "standardize",
+                    devices: Optional[Sequence[torch.device]] = None
+                    ) -> np.ndarray:
+    """Multi-device batch forward: a batch of outer blocks split over the
+    mesh's ``data`` axis, each data shard's sub-batch through one model on
+    its device (blocks are independent — halos come from the store — so
+    this is pure device parallelism, the reference's one-GPU-per-job
+    mapping, inference/inference.py:370-375).  The batch is padded to a
+    multiple of ``mesh.shape["data"]`` (the padding is never computed);
+    each block runs through :func:`make_predictor` — per-block
+    standardize / normalize, reflect padding to the U-Net divisor, one
+    forward — so the results are the per-block predictor's.
+
+    ``volume``: ``(N, D, H, W)`` stacked outer blocks; returns ``(N, C, D,
+    H, W)`` float32 predictions.  ``devices``: the shard devices (default
+    :func:`~..parallel.mesh.shard_devices`: every visible card)."""
+    from ..parallel import mesh as mesh_lib
+
+    devs = list(devices) if devices is not None else \
+        mesh_lib.shard_devices()
+    mesh = mesh_lib.make_mesh(n_devices or len(devs), devices=devs)
+    n, *spatial = volume.shape
+    dp = mesh.shape["data"]
+    per = _round_up(max(n, dp), dp) // dp
+    # the model/space positions of one data index hold the same sub-batch
+    # (replicated): the first of them computes it
+    per_data = mesh.size // dp
+    outs = []
+    for i in range(dp):
+        predict = make_predictor(
+            checkpoint_path, spatial, (0,) * len(spatial), preprocess,
+            device=str(mesh.device_list[i * per_data]))
+        outs += [predict(b) for b in volume[i * per:(i + 1) * per]]
+    return np.stack(outs)

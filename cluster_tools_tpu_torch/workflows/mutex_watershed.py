@@ -176,9 +176,8 @@ class MwsBlocksBase(BlockTask):
         self.mask_path = mask_path
         self.mask_key = mask_key
         super().__init__(**kw)
-        if self.target == "mesh":
-            raise NotImplementedError(
-                "target='mesh' is not ported yet (ROADMAP A14)")
+        # target="mesh" runs inline, as in the JAX package (the mutex
+        # watershed has no mesh formulation)
         self.device = task_device(self.global_config)
 
     @staticmethod

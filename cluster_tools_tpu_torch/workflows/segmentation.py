@@ -135,14 +135,23 @@ class MulticutSegmentationWorkflow(Task):
     def requires(self):
         assignment_path = os.path.join(self.tmp_folder,
                                        "multicut_assignments.npy")
+        write_bs_kw = {}
         if self.fused:
-            from .fused_pipeline import FusedProblemWorkflow
+            from .fused_pipeline import (FusedProblemWorkflow,
+                                         mesh_resident_block_shape)
 
             problem = FusedProblemWorkflow(
                 input_path=self.input_path, input_key=self.input_key,
                 ws_path=self.ws_path, ws_key=self.ws_key,
                 problem_path=self.problem_path,
                 dependency=self.dependency, **self._common())
+            # mesh-resident fused chain: fragments staged one slab per
+            # shard — the assignment write iterates the same slab grid so
+            # the in-RAM fragment cache hits (store reads otherwise)
+            mesh_bs = mesh_resident_block_shape(
+                self.config_dir, self.input_path, self.input_key)
+            if mesh_bs:
+                write_bs_kw = {"block_shape": mesh_bs}
         else:
             problem = ProblemWorkflow(
                 input_path=self.input_path, input_key=self.input_key,
@@ -156,7 +165,7 @@ class MulticutSegmentationWorkflow(Task):
             input_path=self.ws_path, input_key=self.ws_key,
             output_path=self.output_path, output_key=self.output_key,
             assignment_path=assignment_path, identifier="multicut",
-            dependency=multicut, **self._common())
+            dependency=multicut, **write_bs_kw, **self._common())
 
     def output(self):
         return FileTarget(os.path.join(self.tmp_folder,

@@ -21,8 +21,9 @@ write.  Two per-block paths:
 
 The global pair merge uses scipy's sparse CC over the face-pair graph.
 The device is the global config's ``"device"`` (default ``"cuda"``);
-``target="mesh"`` (the JAX package's ``MeshBlockComponents``) raises
-naming ROADMAP A14.
+``target="mesh"`` runs ``MeshBlockComponents`` (workflows/mesh_blockwise.py):
+rounds of one block per shard device with the offset scan and the
+round-adjacent faces on the devices.
 """
 
 from __future__ import annotations
@@ -398,10 +399,14 @@ class BlockFaces(BlockTask):
 
     task_name = "block_faces"
 
-    def __init__(self, path: str, key: str, offsets_path: str, **kw):
+    def __init__(self, path: str, key: str, offsets_path: str,
+                 skip_covered: bool = False, **kw):
         self.path = path
         self.key = key
         self.offsets_path = offsets_path
+        #: skip faces the mesh phase already merged on the device (their
+        #: block pairs are listed as ``covered_faces`` in the offsets JSON)
+        self.skip_covered = skip_covered
         super().__init__(**kw)
 
     def run_impl(self):
@@ -412,6 +417,7 @@ class BlockFaces(BlockTask):
         self.run_jobs(block_list, {
             "path": self.path, "key": self.key,
             "offsets_path": self.offsets_path,
+            "skip_covered": self.skip_covered,
             "shape": shape, "block_shape": block_shape,
         }, n_jobs=self.max_jobs)
 
@@ -422,7 +428,10 @@ class BlockFaces(BlockTask):
         cfg = job_config["config"]
         blocking = Blocking(cfg["shape"], cfg["block_shape"])
         with open(cfg["offsets_path"]) as f:
-            offsets = np.asarray(json.load(f)["offsets"], dtype="uint64")
+            off_data = json.load(f)
+        offsets = np.asarray(off_data["offsets"], dtype="uint64")
+        covered = (set(map(tuple, off_data.get("covered_faces", [])))
+                   if cfg.get("skip_covered") else set())
         ndim = blocking.ndim
         ds = file_reader(cfg["path"], "r")[cfg["key"]]
 
@@ -451,6 +460,8 @@ class BlockFaces(BlockTask):
         pairs: List[np.ndarray] = []
         for block_id in job_config["block_list"]:
             for face in iterate_faces(blocking, block_id, halo=[1] * ndim):
+                if (face.block_a, face.block_b) in covered:
+                    continue
                 la = face_plane(plane_bb(face.outer_bb, face.face_a),
                                 face.block_a)
                 lb = face_plane(plane_bb(face.outer_bb, face.face_b),
@@ -532,8 +543,10 @@ class ThresholdedComponentsWorkflow(Task):
 
     The resident pass runs for ``target="gpu"`` without a mask when the
     device is ``"cuda"`` (``CTT_FORCE_RESIDENT=1`` takes it on the CPU
-    too); every other case runs the per-block path on the config's
-    device."""
+    too); ``target="mesh"`` without a mask runs MeshBlockComponents
+    (rounds of one block per shard device, workflows/mesh_blockwise.py)
+    -> BlockFaces skipping the device-covered faces; every other case runs
+    the per-block path on the config's device."""
 
     def __init__(self, input_path: str, input_key: str, output_path: str,
                  output_key: str, threshold: float, tmp_folder: str,
@@ -541,10 +554,6 @@ class ThresholdedComponentsWorkflow(Task):
                  threshold_mode: str = "greater", mask_path: str = "",
                  mask_key: str = "", assignment_key: str = "assignments",
                  dependency: Optional[Task] = None):
-        if target == "mesh":
-            raise NotImplementedError(
-                "target='mesh' (MeshBlockComponents) is not ported yet "
-                "(ROADMAP A14)")
         self.input_path = input_path
         self.input_key = input_key
         self.output_path = output_path
@@ -577,7 +586,23 @@ class ThresholdedComponentsWorkflow(Task):
         resident = (self.target == "gpu" and not self.mask_path
                     and (device.startswith("cuda")
                          or os.environ.get("CTT_FORCE_RESIDENT") == "1"))
-        if resident:
+        skip_covered = False
+        if self.target == "mesh" and not self.mask_path:
+            # mesh phase: per-block CC + offset scan + the round-adjacent
+            # face exchange in rounds over the shard devices
+            # (workflows/mesh_blockwise.py); the other faces go through
+            # the host scan with the device-covered pairs skipped
+            from .mesh_blockwise import MeshBlockComponents
+
+            faces_dep = MeshBlockComponents(
+                input_path=self.input_path, input_key=self.input_key,
+                output_path=self.output_path, output_key=self.output_key,
+                threshold=self.threshold,
+                threshold_mode=self.threshold_mode,
+                offsets_path=offsets_path,
+                dependency=self.dependency, **self._common())
+            skip_covered = True
+        elif resident:
             faces_dep = ResidentBlockComponents(
                 input_path=self.input_path, input_key=self.input_key,
                 output_path=self.output_path, output_key=self.output_key,
@@ -596,8 +621,8 @@ class ThresholdedComponentsWorkflow(Task):
                                      offsets_path=offsets_path,
                                      dependency=t1, **self._common())
         t3 = BlockFaces(path=self.output_path, key=self.output_key,
-                        offsets_path=offsets_path, dependency=faces_dep,
-                        **self._common())
+                        offsets_path=offsets_path, skip_covered=skip_covered,
+                        dependency=faces_dep, **self._common())
         t4 = MergeAssignments(offsets_path=offsets_path,
                               assignment_path=assignment_path,
                               dependency=t3, **self._common())

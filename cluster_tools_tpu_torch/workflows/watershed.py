@@ -23,7 +23,9 @@ second pass run :func:`run_ws_block` / :func:`run_ws_block_seeded` per
 block.  ``ws_algorithm`` picks the watershed: ``coarse`` (default),
 ``basins`` or ``flood``.  ``impl: "host"`` runs :func:`run_ws_block_host`,
 the JAX package's scipy + C++ CPU pipeline, only when asked for.
-``target="mesh"`` raises naming ROADMAP A14.
+``target="mesh"`` streams the streamable configurations with block i on
+shard device i mod n (:func:`_iter_ws_stream`, bitwise equal to the
+one-device stream); the others run the inline path.
 """
 
 from __future__ import annotations
@@ -425,9 +427,13 @@ def _stream_params(cfg: Dict[str, Any], device) -> Dict[str, Any]:
         coarse_factor=int(cfg.get("coarse_factor", 2)))
 
 
-def _iter_ws_stream(blocks, cfg: Dict[str, Any], device):
+def _iter_ws_stream(blocks, cfg: Dict[str, Any], device,
+                    shard_devices=None):
     """:func:`iter_ws_blocks_stream` yielding label tensors (int32 on the
-    device, or int64 from a host size filter)."""
+    device, or int64 from a host size filter).  ``shard_devices`` (the
+    ``mesh`` target) places block i on shard device i mod n, with at least
+    two blocks per shard in flight; each block runs and drains as on one
+    device, in input order, so the labels are bitwise equal."""
     unsupported = [k for k in ("apply_dt_2d", "apply_ws_2d", "pixel_pitch",
                                "non_maximum_suppression") if cfg.get(k)]
     if unsupported:
@@ -437,15 +443,21 @@ def _iter_ws_stream(blocks, cfg: Dict[str, Any], device):
     from ..core.runtime import stage, stream_window
     from ..ops.watershed import size_filter
 
-    params = _stream_params(cfg, device)
+    devs = list(shard_devices or [device])
+    params = _stream_params(cfg, devs[0])
     min_size = int(cfg.get("size_filter", 25) or 0)
+    window = int(cfg.get("stream_window", 3))
+    if shard_devices:
+        window = max(window, 2 * len(devs))
 
-    def submit(b):
+    def submit(item):
+        i, b = item
+        dev = devs[i % len(devs)]
         with stage("dispatch"):
-            return b, _ws_pipeline_3d(_as_device(b, device), **params)
+            return b, _ws_pipeline_3d(_as_device(b, dev), **params), dev
 
     def drain(entry):
-        b, out = entry
+        b, out, dev = entry
         with stage("sync-execute"):
             ok = bool(out[-1])
         if not ok:
@@ -456,7 +468,7 @@ def _iter_ws_stream(blocks, cfg: Dict[str, Any], device):
             with stage("device-ws-redo"):
                 return _run_ws_block_tensor(
                     as_normalized_float(b), {**cfg, "ws_algorithm": "basins"},
-                    None, device)
+                    None, dev)
         if not params["return_height"]:
             return out[0]
         ws, height, _ = out
@@ -464,8 +476,8 @@ def _iter_ws_stream(blocks, cfg: Dict[str, Any], device):
                                             min_size).astype("int64"))
 
     # bounded look-ahead: a few blocks in flight, drained as consumed
-    yield from stream_window(blocks, submit, drain,
-                             window=int(cfg.get("stream_window", 3)))
+    yield from stream_window(enumerate(blocks), submit, drain,
+                             window=window)
 
 
 def iter_ws_blocks_stream(blocks, cfg: Dict[str, Any], device="cuda"):
@@ -602,9 +614,6 @@ class WatershedTask(BlockTask):
         self.mask_path = mask_path
         self.mask_key = mask_key
         super().__init__(**kw)
-        if self.target == "mesh":
-            raise NotImplementedError(
-                "target='mesh' is not ported yet (ROADMAP A14)")
         self.device = task_device(self.global_config)
 
     @staticmethod
@@ -706,8 +715,20 @@ class WatershedTask(BlockTask):
                                               cfg, halo, raw=True)
 
             reads = prefetch_iter(block_ids, _read)
-            for bid, ws in zip(block_ids, _iter_ws_stream(reads, cfg,
-                                                          device)):
+            shards = None
+            if job_config.get("target") == "mesh":
+                # one block per shard device in turn, bitwise equal to the
+                # one-device stream
+                from ..core.runtime import status_fields
+                from ..parallel.mesh import blocks_mesh, config_devices
+
+                mesh = blocks_mesh(devices=config_devices(
+                    job_config["global_config"]))
+                status_fields(log_fn, mesh_devices=mesh.size,
+                              physical_devices=mesh.physical_devices)
+                shards = mesh.device_list
+            stream = _iter_ws_stream(reads, cfg, device, shards)
+            for bid, ws in zip(block_ids, stream):
                 _write_result(bid, ws)
             return
 

@@ -312,10 +312,12 @@ def test_new_device_tasks_raise_without_a_card(tmp_path, which):
 ])
 def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
                                             match):
-    """The split chain's options that are still to be ported raise, naming
-    their ROADMAP item (the filter-bank edge features, A13, are ported:
-    ``tests/test_torch_edge_filters.py``; the random-forest edge
-    probabilities, A16: ``test_edge_costs_rf_path_runs_rf_predict``)."""
+    """The split chain's options that once raised, naming their ROADMAP
+    item, now construct (the watershed's ``target="mesh"``, A14:
+    ``tests/test_torch_mesh_exec.py``; the filter-bank edge features,
+    A13: ``tests/test_torch_edge_filters.py``; the random-forest edge
+    probabilities, A16: ``test_edge_costs_rf_path_runs_rf_predict``), and
+    no source of the port names the item in a raise any more."""
     from cluster_tools_tpu_torch.core.config import ConfigDir
     from cluster_tools_tpu_torch.workflows.watershed import WatershedTask
 
@@ -324,9 +326,19 @@ def test_unported_split_chain_options_raise(tmp_path, task, task_cfg, kw,
                                         "device": "cpu"})
     ConfigDir(cfg).write_task_config(task, task_cfg)
     common = dict(tmp_folder=str(tmp_path / "tmp"), config_dir=cfg, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        WatershedTask(input_path="a.n5", input_key="x",
+    t = WatershedTask(input_path="a.n5", input_key="x",
                       output_path="a.n5", output_key="w", **common)
+    assert t.target == kw["target"]
+    _no_source_names(match)
+
+
+def _no_source_names(item: str) -> None:
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            if item in f.read():
+                bad.append(os.path.relpath(path, ROOT))
+    assert not bad, bad
 
 
 def test_edge_costs_rf_path_runs_rf_predict(tmp_path):
@@ -393,6 +405,9 @@ def test_filter_bank_modules_are_held_to_the_rule():
     ({"mesh_resident": True}, "ROADMAP A14"),
 ])
 def test_unported_fused_options_raise(tmp_path, task_cfg, match):
+    """The fused chain's ``mesh_resident`` (A14) once raised; it now
+    constructs (``tests/test_torch_mesh_resident.py`` runs it) and no
+    source of the port names A14 in a raise."""
     from cluster_tools_tpu_torch.core.config import ConfigDir
     from cluster_tools_tpu_torch.workflows.fused_pipeline import \
         FusedSegmentationBlocks
@@ -401,11 +416,12 @@ def test_unported_fused_options_raise(tmp_path, task_cfg, match):
     ConfigDir(cfg).write_global_config({"block_shape": [8, 8, 8],
                                         "device": "cpu"})
     ConfigDir(cfg).write_task_config("fused_segmentation", task_cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        FusedSegmentationBlocks(
-            input_path="a.n5", input_key="x", output_path="a.n5",
-            output_key="w", problem_path="p.n5",
-            tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
+    t = FusedSegmentationBlocks(
+        input_path="a.n5", input_key="x", output_path="a.n5",
+        output_key="w", problem_path="p.n5",
+        tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
+    assert t.task_config["mesh_resident"] is True
+    _no_source_names(match)
 
 
 def test_unknown_fused_ws_method_raises(tmp_path):
@@ -426,10 +442,14 @@ def test_unknown_fused_ws_method_raises(tmp_path):
 
 
 def test_mesh_target_raises(tmp_path):
-    from cluster_tools_tpu_torch.core.runtime import EXECUTORS
+    """The ``mesh`` target once raised (A14); it is now the inline
+    executor, as in the JAX package: mesh-aware tasks spread their blocks
+    over the shard devices, the others run inline in the driver process."""
+    from cluster_tools_tpu_torch.core.runtime import (EXECUTORS,
+                                                      _InlineExecutor)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        EXECUTORS["mesh"]()
+    assert isinstance(EXECUTORS["mesh"](), _InlineExecutor)
+    assert EXECUTORS["mesh"] is EXECUTORS["gpu"]
 
 
 def test_post_segmentation_modules_are_held_to_the_rule():
@@ -496,3 +516,23 @@ def test_storage_and_host_extras_are_held_to_the_rule():
             if "ROADMAP A16" in f.read():
                 bad.append(os.path.relpath(path, ROOT))
     assert not bad, bad
+
+
+def test_multi_device_modules_are_held_to_the_rule():
+    """The multi-device modules (the device mesh, the halo ring, the
+    multi-process runs, the mesh CC) are among the modules the two import
+    checks walk, and importing them loads neither jax nor the JAX
+    package."""
+    mods = set(_port_modules())
+    for name in ("parallel", "parallel.mesh", "parallel.stencil",
+                 "parallel.multihost", "workflows.mesh_blockwise"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+    code = ("import sys\n"
+            "import cluster_tools_tpu_torch.parallel.mesh\n"
+            "import cluster_tools_tpu_torch.parallel.stencil\n"
+            "import cluster_tools_tpu_torch.parallel.multihost\n"
+            "import cluster_tools_tpu_torch.workflows.mesh_blockwise\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'cluster_tools_tpu', 'flax')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)

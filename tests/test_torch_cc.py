@@ -197,17 +197,38 @@ def test_resident_cache_miss_reads_the_store(tmp_path, monkeypatch):
 
 
 def test_mesh_and_missing_card_raise(tmp_path):
+    """``target="mesh"`` runs the mesh phase (MeshBlockComponents, 4
+    shards on the CPU) and writes the ``gpu`` run's labels; without a
+    card the default device raises at the build."""
     import cluster_tools_tpu_torch as ctp
     from cluster_tools_tpu_torch.core.config import ConfigDir
+    from cluster_tools_tpu_torch.workflows.mesh_blockwise import \
+        MeshBlockComponents
 
-    path = _store(tmp_path, _volume())
+    vol = _volume()
+    path = _store(tmp_path, vol)
+    cpu_cfg = str(tmp_path / "cpu_cfg")
+    ConfigDir(cpu_cfg).write_global_config({
+        "block_shape": BLOCK, "device": "cpu", "mesh_devices": 4})
+    labels = {}
+    for target in ("mesh", "gpu"):
+        wf = ctp.ThresholdedComponentsWorkflow(
+            input_path=path, input_key="raw", output_path=path,
+            output_key=f"cc_{target}", threshold=0.5,
+            tmp_folder=str(tmp_path / f"tmp_{target}"), config_dir=cpu_cfg,
+            target=target)
+        if target == "mesh":
+            assert isinstance(wf.requires().dependency.dependency
+                              .dependency, MeshBlockComponents)
+        assert ctp.build([wf], raise_on_failure=True)
+        with ctp.file_reader(path, "r") as f:
+            labels[target] = f[f"cc_{target}"][:]
+    np.testing.assert_array_equal(labels["mesh"], labels["gpu"])
     cfg = str(tmp_path / "cfg")
     ConfigDir(cfg).write_global_config({"block_shape": BLOCK})
     kw = dict(input_path=path, input_key="raw", output_path=path,
               output_key="cc", threshold=0.5,
               tmp_folder=str(tmp_path / "tmp"), config_dir=cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        ctp.ThresholdedComponentsWorkflow(target="mesh", **kw)
     wf = ctp.ThresholdedComponentsWorkflow(**kw)
     assert wf.target == "gpu"
     if not torch.cuda.is_available():

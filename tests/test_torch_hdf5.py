@@ -419,3 +419,93 @@ def test_not_an_hdf5_file_and_modes(tmp_path):
     with hdf5.File(path, "r") as f:
         with pytest.raises(OSError, match="read-only"):
             f.create_group("g")
+
+
+def _fletcher32_file(path, corrupt):
+    """A uint8 ``(16, 16, 16)`` ``arange`` dataset in ``(8, 8, 8)`` chunks
+    with fletcher32, optionally with one byte of the first chunk flipped
+    (offset 10 from its stored start)."""
+    data = (np.arange(16 ** 3) % 256).astype("uint8").reshape(16, 16, 16)
+    with h5py.File(path, "w") as f:
+        ds = f.create_dataset("x", data=data, chunks=(8, 8, 8),
+                              fletcher32=True)
+        start = ds.id.get_chunk_info(0).byte_offset
+    if corrupt:
+        with open(path, "r+b") as fh:
+            fh.seek(start + 10)
+            b = fh.read(1)
+            fh.seek(start + 10)
+            fh.write(bytes([b[0] ^ 0xFF]))
+    return data
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_fletcher32_is_verified_like_the_jax_package(tmp_path, corrupt):
+    """A chunk whose Fletcher-32 does not match raises ``OSError`` in both
+    packages, naming the dataset and the chunk in the port; the intact
+    file reads the same array in both."""
+    path = str(tmp_path / "f.h5")
+    data = _fletcher32_file(path, corrupt)
+    if corrupt:
+        with pytest.raises(OSError):
+            with jax_reader(path, "r") as f:
+                f["x"][:]
+        with pytest.raises(OSError, match=r"fletcher32.*'/x'.*chunk "
+                                          r"\(0, 0, 0\)"):
+            with port_reader(path, "r") as f:
+                f["x"][:]
+        # a chunk that was not touched still reads
+        with port_reader(path, "r") as f:
+            np.testing.assert_array_equal(f["x"][8:, 8:, 8:],
+                                          data[8:, 8:, 8:])
+        return
+    with jax_reader(path, "r") as f:
+        want = f["x"][:]
+    with port_reader(path, "r") as f:
+        got = f["x"][:]
+    np.testing.assert_array_equal(want, data)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_bytes", [0, 1, 2, 245, 720, 721, 4096, 100001])
+def test_fletcher32_matches_hdf5s_definition(n_bytes):
+    """The port's Fletcher-32 against a word-by-word transcription of
+    ``H5_checksum_fletcher32`` (runs of 360 words, odd trailing byte)."""
+    rng = np.random.RandomState(n_bytes)
+    data = rng.randint(0, 256, n_bytes).astype("uint8").tobytes()
+
+    def reference(buf):
+        sum1 = sum2 = 0
+        n = len(buf) // 2
+        i = 0
+        while n:
+            t = min(n, 360)
+            n -= t
+            for _ in range(t):
+                sum1 = (sum1 + ((buf[i] << 8) | buf[i + 1])) & 0xFFFFFFFF
+                i += 2
+                sum2 = (sum2 + sum1) & 0xFFFFFFFF
+            sum1 = (sum1 & 0xFFFF) + (sum1 >> 16)
+            sum2 = (sum2 & 0xFFFF) + (sum2 >> 16)
+        if len(buf) % 2:
+            sum1 += buf[i] << 8
+            sum2 += sum1
+            sum1 = (sum1 & 0xFFFF) + (sum1 >> 16)
+            sum2 = (sum2 & 0xFFFF) + (sum2 >> 16)
+        sum1 = (sum1 & 0xFFFF) + (sum1 >> 16)
+        sum2 = (sum2 & 0xFFFF) + (sum2 >> 16)
+        return (sum2 << 16) | sum1
+
+    assert hdf5.fletcher32(data) == reference(data)
+
+
+def test_fletcher32_odd_chunks_read_from_h5py(tmp_path):
+    """Chunks of an odd byte count (the trailing-byte rule) written by
+    h5py read back through the port's check."""
+    path = str(tmp_path / "odd.h5")
+    data = np.random.RandomState(3).randint(0, 256, (7, 9, 5)).astype(
+        "uint8")
+    with h5py.File(path, "w") as f:
+        f.create_dataset("x", data=data, chunks=(7, 7, 5), fletcher32=True)
+    with port_reader(path, "r") as f:
+        np.testing.assert_array_equal(f["x"][:], data)

@@ -176,11 +176,21 @@ def test_make_predictor_matches_jax(checkpoints, name, preprocess):
         (err.max(), err.mean())
 
 
-def test_predict_sharded_and_train_state_raise():
-    from cluster_tools_tpu_torch.workflows.inference import predict_sharded
+def test_predict_sharded_and_train_state_raise(checkpoints):
+    """``predict_sharded`` runs (it raised before the port had the mesh):
+    two shards on the CPU give the per-block predictor's forwards, bit
+    for bit; the training-state checkpoints (A15) still raise."""
+    from cluster_tools_tpu_torch.parallel.mesh import shard_devices
+    from cluster_tools_tpu_torch.workflows.inference import (make_predictor,
+                                                             predict_sharded)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        predict_sharded("x", np.zeros((1, 8, 8, 8)))
+    path = checkpoints["aniso"][0]
+    raw = np.random.RandomState(2).rand(3, 8, 16, 16).astype("float32")
+    got = predict_sharded(path, raw, devices=shard_devices("cpu", 2))
+    assert got.shape == (3, 3, 8, 16, 16) and got.dtype == np.float32
+    pred = make_predictor(path, (8, 16, 16), (0, 0, 0), device="cpu")
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], pred(raw[i]))
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         pckpt.save_train_state("x", None)
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):

@@ -140,8 +140,9 @@ def test_n5_blosc_creation_matches_jax(tmp_path, dtype):
 
 def test_config_dirs_read_unchanged_across_packages(tmp_path):
     """A config directory the JAX package writes is read by the port with
-    the same keys and values (the port adds only ``device``), and the
-    fused task's defaults are the JAX package's."""
+    the same keys and values (the port adds only ``device`` and
+    ``mesh_devices``, the shards of its device meshes), and the fused
+    task's defaults are the JAX package's."""
     from cluster_tools_tpu.core.config import ConfigDir as JaxConfigDir
     from cluster_tools_tpu.workflows.fused_pipeline import \
         FusedSegmentationBlocks as JaxFused
@@ -155,7 +156,8 @@ def test_config_dirs_read_unchanged_across_packages(tmp_path):
                                         {"threshold": 0.4, "e_max": 4096})
     jax_global = JaxConfigDir(cfg).global_config()
     port_global = ConfigDir(cfg).global_config()
-    assert port_global == {**jax_global, "device": "cuda"}
+    assert port_global == {**jax_global, "device": "cuda",
+                           "mesh_devices": 0}
     defaults = FusedSegmentationBlocks.default_task_config()
     assert defaults == JaxFused.default_task_config()
     assert ConfigDir(cfg).task_config("fused_segmentation", defaults) == \
