@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernel and C++ solvers from the checkout's
-sources, then runs seventeen phases, each of which must pass:
+sources, then runs eighteen phases, each of which must pass:
 
 1. the build;
 2. the min-plus EDT kernel against its plain PyTorch version (in place
@@ -172,7 +172,20 @@ sources, then runs seventeen phases, each of which must pass:
    ``target="gpu"`` and to scipy's partition; (f) ``predict_sharded`` of 4
    outer ``(60, 544, 544)`` blocks within 2e-5 of the per-block forwards;
    (g) two processes splitting a ``BlockTask`` through the runtime's
-   multi-process path, with a gloo ``all_reduce``.
+   multi-process path, with a gloo ``all_reduce``;
+18. training and the parallel primitives, which launch no kernel of the
+   port: (a) a float32 ``(4, 8)`` U-Net's loss and every gradient card
+   against CPU, and ``shard_train_step`` over 8 shards ``(2, 2, 2)`` on the
+   card against the unsharded step; (b) ``create_unet()`` trained 10 steps
+   on two ``(32, 256, 256)`` crops of phase 4's volume against their 12
+   ``DEFAULT_OFFSETS`` affinities (the loss falls; ms per step, peak
+   memory, the profile of one step with GroupNorm's share), then 3 steps of
+   ``shard_train_step`` over 8 shards from the same start, the losses
+   within 2e-2 of the unsharded ones; (c) the sharded state after step 1
+   saved and restored bitwise, the next loss equal; (d)
+   ``pipeline_apply``, ``moe_apply`` (two capacities) and
+   ``ring_attention`` (float32 and bfloat16, causal and not) over 4 shards,
+   each against its dense version on the card and timed beside it.
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -4266,6 +4279,457 @@ def mesh_paths(root: str, block, gt: np.ndarray, block_quality,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training and the parallel primitives
+# ---------------------------------------------------------------------------
+
+#: 18a: the small float32 U-Net and batch (B, D, H, W), card against CPU
+P18_FEATURES = (4, 8)
+P18_SMALL = (2, 8, 32, 32)
+#: 18b: the full-width batch, crops of phase 4's volume
+P18_CROP = (32, 256, 256)
+P18_CORNERS = ((0, 0, 0), (32, 256, 256))
+P18_STEPS = 10
+P18_SHARDED_STEPS = 3
+P18_MESH = 8
+#: float32 card against CPU, and sharded against unsharded: gradients
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-6
+#: float32 sharded loss against unsharded
+SHARD_LOSS_RTOL = 1e-5
+#: bfloat16 sharded losses against unsharded (the CPU tests' bfloat16
+#: loss gate)
+SHARD_BF16_RTOL = 2e-2
+#: the loss of the step after a restore
+RESTORE_RTOL = 1e-6
+#: 18d: the primitives on 4 shards
+P18_SHARDS = 4
+PIPE_D, PIPE_MICRO, PIPE_ROWS = 1024, 16, 512
+MOE_TOKENS, MOE_D = 8192, 1024
+RING_T, RING_H, RING_D = 8192, 8, 64
+PRIM_RTOL, PRIM_ATOL = 2e-4, 1e-5
+RING_BF16_ATOL = 1e-2
+
+
+def _adamw_gate(name, got, want, grads, lr=1e-3):
+    """Parameters after one step from two computations of the gradient:
+    within 2 lr everywhere (a first Adam step moves each element by about
+    lr sign(g)), within 1e-7 where |g| > 1e-6."""
+    worst, worst_big = 0.0, 0.0
+    for k in want:
+        d = (got[k].float().cpu() - want[k].float().cpu()).abs()
+        big = grads[k].abs().cpu() > 1e-6
+        worst = max(worst, float(d.max()))
+        if big.any():
+            worst_big = max(worst_big, float(d[big].max()))
+    if worst > 2 * lr * (1 + 1e-3) or worst_big > 1e-7:
+        raise AssertionError(f"{name}: parameters after one step differ by "
+                             f"{worst} (|g| > 1e-6: {worst_big})")
+    return worst, worst_big
+
+
+def _whole_grads(state, grads):
+    from cluster_tools_tpu_torch.models import train as T
+    from cluster_tools_tpu_torch.parallel import mesh as pm
+
+    out = {}
+    for name, shards in state.params.items():
+        pl = state.placements[name]
+        owner = T._masters(state.mesh, pl, shards[0].ndim)
+        out[name] = pm.unshard([grads[(name, o)] for o in owner],
+                               state.mesh, pl)
+    return out
+
+
+def _grad_err(a, b):
+    """Max abs error and the worst excess over rtol/atol."""
+    err, excess = 0.0, 0.0
+    for k in b:
+        d = (a[k].cpu() - b[k].cpu()).abs()
+        lim = TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * b[k].cpu().abs()
+        err = max(err, float(d.max()))
+        excess = max(excess, float((d - lim).max()))
+    return err, excess
+
+
+def _mesh8(device="cuda"):
+    from cluster_tools_tpu_torch.parallel import mesh as pm
+
+    return pm.make_mesh(devices=pm.shard_devices(device, P18_MESH))
+
+
+def train_card_vs_cpu():
+    """Phase 18a: a float32 U-Net (features P18_FEATURES) on P18_SMALL:
+    the loss and every gradient card against CPU from one state; then
+    ``shard_train_step`` over 8 shards (2, 2, 2) on the card against the
+    unsharded step on the card."""
+    import torch
+
+    from cluster_tools_tpu_torch.models import train as T
+    from cluster_tools_tpu_torch.models.unet import create_unet
+    from cluster_tools_tpu_torch.parallel import mesh as pm
+
+    b, d, h, w = P18_SMALL
+    model = create_unet(out_channels=3, features=P18_FEATURES,
+                        anisotropic=False, dtype=torch.float32)
+    state = T.init_state(model, (b, 1, d, h, w),
+                         generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(b, 1, d, h, w).astype("float32"))
+    y = torch.from_numpy((rng.rand(b, 3, d, h, w) > 0.5).astype("float32"))
+    loss_cpu, g_cpu = T.loss_and_grads(model, state.params, x, y)
+    card = {k: v.cuda() for k, v in state.params.items()}
+    loss_card, g_card = T.loss_and_grads(model, card, x.cuda(), y.cuda())
+    err, excess = _grad_err(g_card, g_cpu)
+    rec = {"loss_card": float(loss_card), "loss_cpu": float(loss_cpu),
+           "loss_rel_err": abs(float(loss_card) / float(loss_cpu) - 1),
+           "grad_max_abs_err": err, "rtol": TRAIN_GRAD_RTOL,
+           "atol": TRAIN_GRAD_ATOL}
+    log(f"train-card-vs-cpu {json.dumps(rec)}")
+    if excess > 0 or rec["loss_rel_err"] > SHARD_LOSS_RTOL:
+        raise AssertionError(f"training card and CPU disagree: {rec}")
+    mesh = _mesh8()
+    cstate = state.replace(params=card,
+                           opt_state=T.make_optimizer().init(card))
+    step, sstate, pl = T.shard_train_step(model, cstate, mesh)
+    xs = pm.shard(x.cuda(), mesh, pl)
+    ys = pm.shard(y.cuda(), mesh, pl)
+    sloss, sgrads = T.sharded_loss_and_grads(model, sstate, xs, ys)
+    err, excess = _grad_err(_whole_grads(sstate, sgrads), g_card)
+    s1, l1 = step(sstate, xs, ys)
+    u1, lu = T.make_train_step(model)(cstate, x.cuda(), y.cuda())
+    gate = _adamw_gate("18a sharded", T.unplace_state(s1).params,
+                       u1.params, g_card)
+    split = sorted(k for k, p in sstate.placements.items()
+                   if "model" in p.spec)
+    rec = {"mesh": mesh.shape, "physical_devices": mesh.physical_devices,
+           "model_split_tensors": len(split), "loss": float(sloss),
+           "loss_unsharded": float(loss_card),
+           "loss_rel_err": abs(float(sloss) / float(loss_card) - 1),
+           "grad_max_abs_err": err, "step_loss": float(l1),
+           "step_loss_unsharded": float(lu),
+           "params_after_step_max_abs_err": gate[0],
+           "params_after_step_err_where_grad_gt_1e-6": gate[1]}
+    log(f"train-sharded-vs-unsharded-small {json.dumps(rec)}")
+    if excess > 0 or rec["loss_rel_err"] > SHARD_LOSS_RTOL or not split:
+        raise AssertionError(f"sharded step differs from the unsharded "
+                             f"step: {rec}")
+    return rec
+
+
+def training_batch(root: str, gt: np.ndarray):
+    """Two P18_CROP crops of phase 4's boundary map (standardized per
+    crop) and the 12 DEFAULT_OFFSETS affinities of their ground truth,
+    channels first on the card."""
+    import torch
+
+    from cluster_tools_tpu_torch.models.unet import DEFAULT_OFFSETS
+    from cluster_tools_tpu_torch.workflows.affinities import \
+        compute_affinities
+
+    main = os.path.join(root, "main", "data.n5")
+    xs, ys = [], []
+    for z, yy, xx in P18_CORNERS:
+        bb = tuple(slice(o, o + s) for o, s in zip((z, yy, xx), P18_CROP))
+        raw = torch.from_numpy(read_dataset(main, "bmap", bb).astype(
+            "float32"))
+        xs.append(((raw - raw.mean()) / raw.std(correction=0))[None])
+        ys.append(torch.from_numpy(compute_affinities(
+            gt[bb], DEFAULT_OFFSETS, device="cuda")))
+    return torch.stack(xs).cuda(), torch.stack(ys).cuda()
+
+
+def _gn_share(prof):
+    """GroupNorm's share of a profiled step's device time: the inclusive
+    device time of ``aten::native_group_norm`` and its backward over the
+    sum of every kernel's time; and the top kernels."""
+    from torch.autograd import DeviceType
+
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    total = sum(e.device_time_total for e in kernels) or 1.0
+    ops = {e.key: e.device_time_total for e in rows
+           if e.key in ("aten::native_group_norm",
+                        "aten::native_group_norm_backward")}
+    named = sum(e.device_time_total for e in kernels
+                if any(s in e.key for s in (
+                    "GroupNorm", "RowwiseMoments", "ComputeFusedParams",
+                    "ComputeInternalGradients",
+                    "ComputeBackwardFusedParams", "GammaBeta")))
+    top = [{"kernel": e.key[:70], "calls": e.count,
+            "ms": e.device_time_total / 1e3,
+            "share": e.device_time_total / total}
+           for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]]
+    # which operator (and input shapes) spends the device time
+    ops_by_shape = [e for e in prof.key_averages(group_by_input_shape=True)
+                    if e.device_type != DeviceType.CUDA
+                    and e.key.startswith("aten::")
+                    and e.key not in ("aten::convolution",
+                                      "aten::_convolution")]
+    top_ops = [{"op": e.key, "shapes": str(e.input_shapes)[:120],
+                "calls": e.count, "ms": e.device_time_total / 1e3,
+                "share": e.device_time_total / total}
+               for e in sorted(ops_by_shape,
+                               key=lambda e: -e.device_time_total)[:6]]
+    return {"device_ms": total / 1e3, "top_ops": top_ops,
+            "group_norm_fwd_ms": ops.get("aten::native_group_norm", 0) / 1e3,
+            "group_norm_bwd_ms": ops.get("aten::native_group_norm_backward",
+                                         0) / 1e3,
+            "group_norm_share": sum(ops.values()) / total,
+            "group_norm_kernels_share_by_name": named / total,
+            "top": top}
+
+
+def _timed_steps(step, state, x, y, n):
+    """n steps; the losses (as floats) and each step's CUDA-event ms."""
+    import torch
+
+    losses, ms, states = [], [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, x, y)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        states.append(state)
+    return losses, ms, states
+
+
+def train_full(root: str, gt: np.ndarray):
+    """Phase 18b: ``create_unet()`` (features (16, 32, 64, 128), 12
+    outputs, anisotropic, bfloat16 compute) trained P18_STEPS steps on a
+    batch of two P18_CROP crops of phase 4's volume: the loss falls, ms
+    per step after the first, peak memory, the profile of one step; then
+    P18_SHARDED_STEPS steps of ``shard_train_step`` over 8 shards on the
+    card from the same start, the losses within SHARD_BF16_RTOL of the
+    unsharded ones.  Returns the sharded states and the batch for 18c."""
+    import torch
+
+    from cluster_tools_tpu_torch.models import train as T
+    from cluster_tools_tpu_torch.models.unet import create_unet
+
+    x, y = training_batch(root, gt)
+    model = create_unet()
+    start = T.init_state(model, tuple(x.shape),
+                         generator=torch.Generator().manual_seed(0),
+                         device=str(x.device))
+    n_params = sum(v.numel() for v in start.params.values())
+    step = T.make_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, states = _timed_steps(step, start, x, y, P18_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA],
+            record_shapes=True) as prof:
+        step(states[-1], x, y)
+        torch.cuda.synchronize()
+    prof_rec = _gn_share(prof)
+    del states, prof
+    rec = {"batch": list(x.shape), "params": n_params, "losses": losses,
+           "ms_per_step": float(np.median(ms[1:])), "ms_steps": ms,
+           "first_step_ms": ms[0], "peak_device_bytes": peak,
+           "profile": prof_rec}
+    log(f"train-full {json.dumps(rec)}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"full-width training did not learn: {losses}")
+    mesh = _mesh8()
+    sstep, sstate, _ = T.shard_train_step(model, start, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slosses, sms, sstates = _timed_steps(sstep, sstate, x, y,
+                                         P18_SHARDED_STEPS)
+    speak = torch.cuda.max_memory_allocated()
+    rel = [abs(a / b - 1) for a, b in zip(slosses, losses)]
+    srec = {"mesh": mesh.shape, "physical_devices": mesh.physical_devices,
+            "losses": slosses, "unsharded_losses": losses[:len(slosses)],
+            "loss_rel_err": rel, "rtol": SHARD_BF16_RTOL,
+            "ms_per_step": float(np.median(sms[1:])), "ms_steps": sms,
+            "peak_device_bytes": speak}
+    log(f"train-full-sharded {json.dumps(srec)}")
+    if max(rel) > SHARD_BF16_RTOL:
+        raise AssertionError(f"sharded full-width losses differ: {srec}")
+    return {"model": model, "step": sstep, "start": sstate,
+            "after_1": sstates[0], "loss_2": slosses[1], "x": x, "y": y,
+            "unsharded": rec, "sharded": srec}
+
+
+def train_state_round_trip(root: str, run):
+    """Phase 18c: the sharded full-width state after step 1 saved and
+    restored onto its placements: params and both moments bitwise, the
+    step and count equal; the next step from the restored state gives
+    18b's second loss within RESTORE_RTOL."""
+    import torch
+
+    from cluster_tools_tpu_torch.models.checkpoint import (
+        restore_train_state, save_train_state)
+
+    path = os.path.join(root, "train_state")
+    s1 = run["after_1"]
+    t0 = time.perf_counter()
+    save_train_state(path, s1)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = restore_train_state(path, run["start"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b)
+               for tree_a, tree_b in ((s1.params, back.params),
+                                      (s1.opt_state.mu, back.opt_state.mu),
+                                      (s1.opt_state.nu, back.opt_state.nu))
+               for k in tree_a for a, b in zip(tree_a[k], tree_b[k]))
+    _, loss = run["step"](back, run["x"], run["y"])
+    rec = {"bitwise": same, "step": back.step, "count":
+           back.opt_state.count, "loss_after_restore": float(loss),
+           "loss_without": run["loss_2"], "rel_err":
+           abs(float(loss) / run["loss_2"] - 1), "save_s": save_s,
+           "restore_s": restore_s, "bytes": sum(
+               os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))}
+    log(f"train-state-round-trip {json.dumps(rec)}")
+    if not same or back.step != s1.step or \
+            back.opt_state.count != s1.opt_state.count or \
+            rec["rel_err"] > RESTORE_RTOL:
+        raise AssertionError(f"train-state round trip: {rec}")
+    return rec
+
+
+def _check(name, got, want, rtol, atol, ms, dense_ms, **extra):
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    rec = {"name": name, "ms": ms, "dense_ms": dense_ms,
+           "max_abs_err": err, "rtol": rtol, "atol": atol, **extra}
+    log(f"primitive {json.dumps(rec)}")
+    if not ok or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name} differs from its dense version: "
+                             f"{rec}")
+    return rec
+
+
+def primitives_card():
+    """Phase 18d: ``pipeline_apply`` (4 stages of tanh(a @ W + b)),
+    ``moe_apply`` (4 experts of x @ W, the default capacity and a quarter
+    of it) and ``ring_attention`` (float32 and bfloat16, causal and not)
+    over P18_SHARDS shards on the card, each against its dense version on
+    the card and timed beside it."""
+    import torch
+
+    from cluster_tools_tpu_torch.parallel import (experts, make_expert_mesh,
+                                                  make_pipe_mesh,
+                                                  make_seq_mesh, moe_apply,
+                                                  pipeline_apply,
+                                                  ring_attention,
+                                                  stack_stage_params)
+    from cluster_tools_tpu_torch.parallel.mesh import shard_devices
+
+    devs = shard_devices("cuda", P18_SHARDS)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    recs = []
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    per = [{"w": randn(PIPE_D, PIPE_D, scale=PIPE_D ** -0.5),
+            "b": randn(PIPE_D, scale=0.1)} for _ in range(P18_SHARDS)]
+    params = stack_stage_params(per)
+    x = randn(PIPE_MICRO, PIPE_ROWS, PIPE_D)
+    mesh = make_pipe_mesh(P18_SHARDS, devices=devs)
+
+    def layer(p, a):
+        return torch.tanh(a @ p["w"] + p["b"])
+
+    def dense_pipe():
+        a = x
+        for p in per:
+            a = layer(p, a)
+        return a
+
+    def pipe():
+        return pipeline_apply(layer, params, x, mesh)
+
+    recs.append(_check("pipeline_apply", pipe(), dense_pipe(), PRIM_RTOL,
+                       PRIM_ATOL, _time_ms(pipe, 3, 1),
+                       _time_ms(dense_pipe, 3, 1),
+                       stages=P18_SHARDS, microbatches=PIPE_MICRO))
+    tokens = randn(MOE_TOKENS, MOE_D)
+    logits = randn(MOE_TOKENS, P18_SHARDS)
+    w = randn(P18_SHARDS, MOE_D, MOE_D, scale=MOE_D ** -0.5)
+    emesh = make_expert_mesh(P18_SHARDS, devices=devs)
+    t_local = MOE_TOKENS // P18_SHARDS
+    default_cap = -(-t_local // P18_SHARDS)
+    for cap in (default_cap, default_cap // 4):
+        def moe(cap=cap):
+            return moe_apply(lambda p, a: a @ p["w"], {"w": w}, logits,
+                             tokens, emesh, capacity=cap)
+
+        def dense(cap=cap):
+            out = tokens.clone()
+            for j in range(P18_SHARDS):
+                sl = slice(j * t_local, (j + 1) * t_local)
+                choice, _, keep, gate = experts.route(logits[sl], cap)
+                xl = tokens[sl]
+                for e in range(P18_SHARDS):
+                    rows = (choice == e) & keep
+                    gl = gate[rows][:, None]
+                    out[sl][rows] = gl * (xl[rows] @ w[e]) \
+                        + (1.0 - gl) * xl[rows]
+            return out
+
+        kept = sum(int(experts.route(logits[j * t_local:(j + 1) * t_local],
+                                     cap)[2].sum())
+                   for j in range(P18_SHARDS))
+        recs.append(_check(f"moe_apply cap {cap}", moe(), dense(),
+                           PRIM_RTOL, PRIM_ATOL, _time_ms(moe, 3, 1),
+                           _time_ms(dense, 3, 1), capacity=cap,
+                           tokens=MOE_TOKENS, routed=kept,
+                           overflow=MOE_TOKENS - kept))
+    smesh = make_seq_mesh(P18_SHARDS, devices=devs)
+    for dtype, atol in ((torch.float32, PRIM_ATOL),
+                        (torch.bfloat16, RING_BF16_ATOL)):
+        q, k, v = (randn(RING_T, RING_H, RING_D).to(dtype)
+                   for _ in range(3))
+        for causal in (False, True):
+            def ring(causal=causal, q=q, k=k, v=v):
+                return ring_attention(q, k, v, smesh, causal=causal)
+
+            def dense(causal=causal, q=q, k=k, v=v):
+                s = torch.einsum("thd,shd->hts", q.float(), k.float()) \
+                    / float(np.sqrt(RING_D))
+                if causal:
+                    tri = torch.ones(RING_T, RING_T, dtype=torch.bool,
+                                     device="cuda").tril()
+                    s = s.masked_fill(~tri[None], float("-inf"))
+                return torch.einsum("hts,shd->thd", torch.softmax(s, -1),
+                                    v.float()).to(dtype)
+
+            recs.append(_check(
+                f"ring_attention {str(dtype)[6:]} "
+                f"{'causal' if causal else 'full'}", ring(), dense(),
+                PRIM_RTOL if dtype == torch.float32 else 1e-2, atol,
+                _time_ms(ring, 3, 1), _time_ms(dense, 3, 1),
+                T=RING_T, H=RING_H, D=RING_D))
+    return recs
+
+
+def training_paths(root: str, gt: np.ndarray):
+    """Phase 18: training and the parallel primitives on the card (no
+    kernel of the port lies on them)."""
+    log(f"phase 18: training ({P18_MESH} shards on 1 card for the "
+        f"sharded step) and the primitives ({P18_SHARDS} shards)")
+    _phase("18a", train_card_vs_cpu)
+    run = _phase("18b", train_full, root, gt)
+    _phase("18c", train_state_round_trip, root, run)
+    del run
+    _phase("18d", primitives_card)
+
+
 def _phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4409,6 +4873,12 @@ def main() -> int:
         # phase 17: the multi-device paths, 4 shards on the one card
         mesh_launches = mesh_paths(root, BLOCK, gt, record["quality"],
                                    crop_store, ckpt)
+        # phase 18: training and the parallel primitives lie on no kernel
+        # of the port
+        kernels.reset_counts()
+        training_paths(root, gt)
+        if kernels.counts()["minplus"] != 0:
+            raise AssertionError("phase 18 launched the min-plus kernel")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -19,8 +19,21 @@ carry the parameters between flax's layout and the port's ``UNet3D``
   weight laid out ``(in, out, kd, kh, kw)``: the taps are flipped;
 * GroupNorm ``scale``/``bias`` are torch's ``weight``/``bias``.
 
-Sharded training states (orbax in the JAX package) belong to training,
-which is not ported yet.
+A training state (``models/train.py``) is a directory of its own, in
+the port's layout (the JAX package writes orbax, which the card's machine
+does not have):
+
+    <path>/train_state.json — step, the optimizer's count and settings,
+                              the model config, each tensor's placement
+                              and the mesh's axes (null when unsharded)
+    <path>/params.npz, mu.npz, nu.npz — the parameters and both Adam
+                              moments under the flax names of params.npz
+
+A sharded state is joined on the host before the write; restore places
+each tensor back by its placement.  :func:`train_state_from_flax` and
+:func:`train_state_to_flax` carry a JAX ``TrainState`` (flax params plus
+optax's ``(ScaleByAdamState, EmptyState, EmptyState)``) across, moments
+with the kernels' transposes and flips.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from __future__ import annotations
 import json
 import os
 import re
+from collections import namedtuple
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -92,7 +106,7 @@ def flax_params_to_state_dict(params: Any) -> Dict[str, torch.Tensor]:
             a = a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
         torch_leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
         sd[f"{prefix}.{torch_leaf}"] = torch.from_numpy(
-            np.ascontiguousarray(a))
+            np.array(a, order="C"))
     return sd
 
 
@@ -162,13 +176,123 @@ def load_checkpoint(path: str, params: bool = True,
     return model.eval(), sd
 
 
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return tree
+
+
+#: a JAX ``TrainState`` as numpy trees: ``opt_state`` is ``(AdamLeaves,
+#: (), ())`` as optax's ``(ScaleByAdamState, EmptyState, EmptyState)``
+FlaxTrainState = namedtuple("FlaxTrainState", "params opt_state step")
+AdamLeaves = namedtuple("AdamLeaves", "count mu nu")
+
+
+def train_state_from_flax(state, device: str = "cuda"):
+    """The port's :class:`~.train.TrainState` of a JAX ``TrainState``
+    whose leaves are numpy arrays (``params``, ``opt_state[0].count /
+    .mu / .nu``, ``step``), its tensors on ``device``."""
+    from ..core.device import resolve_device
+    from .train import AdamState, TrainState, make_optimizer
+
+    dev = resolve_device(device)
+    adam = state.opt_state[0]
+
+    def tensors(tree):
+        return {k: v.to(dev) for k, v in
+                flax_params_to_state_dict(tree).items()}
+
+    params = tensors(state.params)
+    return TrainState(params, AdamState(int(np.asarray(adam.count)),
+                                        tensors(adam.mu), tensors(adam.nu)),
+                      int(np.asarray(state.step)),
+                      optimizer=make_optimizer().config())
+
+
+def train_state_to_flax(state) -> FlaxTrainState:
+    """The inverse of :func:`train_state_from_flax`: nested dicts of
+    numpy arrays under flax's names; a sharded state is joined first."""
+    from .train import unplace_state
+
+    whole = unplace_state(state, device=torch.device("cpu"))
+
+    def tree(sd):
+        return _unflatten(state_dict_to_flax_params(sd))
+
+    adam = AdamLeaves(np.asarray(whole.opt_state.count, np.int32),
+                      tree(whole.opt_state.mu), tree(whole.opt_state.nu))
+    return FlaxTrainState(tree(whole.params), (adam, (), ()),
+                          np.asarray(whole.step, np.int32))
+
+
+def _spec_to_json(spec):
+    return [list(a) if isinstance(a, tuple) else a for a in spec]
+
+
+def _spec_from_json(spec):
+    return tuple(tuple(a) if isinstance(a, list) else a for a in spec)
+
+
 def save_train_state(path: str, state) -> None:
-    """Sharded training states (orbax in the JAX package) are not ported."""
-    raise NotImplementedError(
-        "training-state checkpoints are not ported yet (ROADMAP A15)")
+    """Write a (possibly sharded) train state: ``train_state.json`` and
+    the three ``.npz`` files, each tensor whole (joined on the host)."""
+    from .train import unplace_state
+
+    os.makedirs(path, exist_ok=True)
+    whole = unplace_state(state, device=torch.device("cpu"))
+    for name, tree in (("params", whole.params), ("mu", whole.opt_state.mu),
+                       ("nu", whole.opt_state.nu)):
+        np.savez(os.path.join(path, f"{name}.npz"),
+                 **state_dict_to_flax_params(tree))
+    write_config(os.path.join(path, "train_state.json"), {
+        "step": int(state.step), "count": int(state.opt_state.count),
+        "optimizer": dict(state.optimizer), "model": dict(state.config),
+        "mesh": state.mesh.shape if state.sharded else None,
+        "placements": ({k: _spec_to_json(p.spec)
+                        for k, p in state.placements.items()}
+                       if state.sharded else None)})
 
 
 def restore_train_state(path: str, abstract_state):
-    """Sharded training states (orbax in the JAX package) are not ported."""
-    raise NotImplementedError(
-        "training-state checkpoints are not ported yet (ROADMAP A15)")
+    """Restore a train state written by :func:`save_train_state` onto the
+    layout of ``abstract_state`` (a state of the same model): whole
+    tensors on its tensors' devices, or, for a sharded one, cut onto its
+    mesh by the saved placements."""
+    from ..parallel.mesh import Placement, shard
+    from .train import AdamState, TrainState
+
+    with open(os.path.join(path, "train_state.json")) as f:
+        meta = json.load(f)
+    trees = {}
+    for name in ("params", "mu", "nu"):
+        with np.load(os.path.join(path, f"{name}.npz")) as data:
+            trees[name] = flax_params_to_state_dict(
+                {k: data[k] for k in data.files})
+    ref = abstract_state.params
+    if set(trees["params"]) != set(ref):
+        raise KeyError(f"{path}: saved parameters do not match the "
+                       f"abstract state's")
+    mesh, placements = abstract_state.mesh, abstract_state.placements
+    if abstract_state.sharded and meta.get("placements"):
+        if meta["mesh"] != mesh.shape:
+            raise ValueError(f"{path}: saved on a mesh {meta['mesh']}, "
+                             f"restoring onto {mesh.shape}")
+        placements = {k: Placement(_spec_from_json(v))
+                      for k, v in meta["placements"].items()}
+
+    def place(tree):
+        if abstract_state.sharded:
+            return {k: shard(v, mesh, placements[k]) for k, v in tree.items()}
+        return {k: v.to(ref[k].device) for k, v in tree.items()}
+
+    return TrainState(place(trees["params"]),
+                      AdamState(int(meta["count"]), place(trees["mu"]),
+                                place(trees["nu"])),
+                      int(meta["step"]), config=meta.get("model"),
+                      optimizer=meta.get("optimizer"), mesh=mesh,
+                      placements=placements)

@@ -161,6 +161,14 @@ def single_axis_mesh(axis: str, n_shards: int,
     return Mesh(arr, (axis,))
 
 
+def axis_devices(mesh: Mesh, axis: str) -> List[torch.device]:
+    """The devices along ``axis`` at position 0 of every other axis (one
+    ring of the axis)."""
+    k = mesh.axis_names.index(axis)
+    return list(np.moveaxis(mesh.devices, k, 0).reshape(
+        mesh.devices.shape[k], -1)[:, 0])
+
+
 # ---------------------------------------------------------------------------
 # placements: which tensor dim is split over which mesh axes
 # ---------------------------------------------------------------------------
@@ -214,6 +222,56 @@ def param_sharding(mesh: Mesh, params: Dict[str, torch.Tensor]
         return Placement(())
 
     return {k: leaf(v) for k, v in params.items()}
+
+
+def torch_param_sharding(mesh: Mesh, module: torch.nn.Module
+                         ) -> Dict[str, Placement]:
+    """Tensor-parallel layout of a torch module's parameters, by output
+    channel: a ``Conv3d`` weight ``(out, in, kd, kh, kw)`` splits dim 0
+    over ``model``, a ``ConvTranspose3d`` weight ``(in, out, kd, kh, kw)``
+    dim 1, each with its bias, where the axis divides the output
+    channels.  A ``GroupNorm``'s scale and bias split with the channels
+    when every piece holds whole groups; in a block of ``convs`` and
+    ``norms`` (the U-Net's ``ConvBlock``) convolution j splits only if
+    norm j does, so no group straddles a split.  Everything else is
+    replicated.  (:func:`param_sharding` is the flax-layout rule.)"""
+    mp = mesh.shape.get("model", 1)
+    split0, split1 = Placement(("model",)), Placement((None, "model"))
+    out = {name: Placement(()) for name, _ in module.named_parameters()}
+
+    def divides(c: int) -> bool:
+        return mp > 1 and c % mp == 0
+
+    def norm_splits(norm: torch.nn.GroupNorm) -> bool:
+        per_group = norm.num_channels // norm.num_groups
+        return divides(norm.num_channels) and \
+            (norm.num_channels // mp) % per_group == 0
+
+    paired = {}
+    for name, mod in module.named_modules():
+        if hasattr(mod, "convs") and hasattr(mod, "norms"):
+            for j, (conv, norm) in enumerate(zip(mod.convs, mod.norms)):
+                ok = divides(conv.out_channels) and norm_splits(norm)
+                pre = f"{name}." if name else ""
+                paired[f"{pre}convs.{j}"] = ok
+                paired[f"{pre}norms.{j}"] = ok
+    for name, mod in module.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, torch.nn.Conv3d):
+            ok = paired.get(name, divides(mod.out_channels))
+            weight = split0
+        elif isinstance(mod, torch.nn.ConvTranspose3d):
+            ok, weight = divides(mod.out_channels), split1
+        elif isinstance(mod, torch.nn.GroupNorm):
+            ok = paired.get(name, norm_splits(mod))
+            weight = split0
+        else:
+            continue
+        if ok:
+            out[pre + "weight"] = weight
+            if mod.bias is not None:
+                out[pre + "bias"] = split0
+    return out
 
 
 def _coords(mesh: Mesh):

@@ -536,3 +536,58 @@ def test_multi_device_modules_are_held_to_the_rule():
             "('jax', 'jaxlib', 'cluster_tools_tpu', 'flax')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
+
+
+def test_training_modules_are_held_to_the_rule():
+    """The training module and the pipeline, expert and ring-attention
+    primitives are among the modules the import checks walk; importing
+    them loads neither jax, flax, optax, orbax nor the JAX package; no
+    source imports optax or orbax; the port's ``parallel`` exports every
+    name of the JAX package's ``parallel/__init__.py``; and no source of
+    the port names A15 as still to come."""
+    import cluster_tools_tpu.parallel as jpar
+    import cluster_tools_tpu_torch.parallel as ppar
+
+    mods = set(_port_modules())
+    for name in ("models.train", "parallel.pipeline", "parallel.experts",
+                 "parallel.ring_attention"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+    code = ("import sys\n"
+            "import cluster_tools_tpu_torch.models.train\n"
+            "import cluster_tools_tpu_torch.models.checkpoint\n"
+            "import cluster_tools_tpu_torch.parallel.pipeline\n"
+            "import cluster_tools_tpu_torch.parallel.experts\n"
+            "import cluster_tools_tpu_torch.parallel.ring_attention\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'cluster_tools_tpu', 'flax', 'optax', "
+            "'orbax')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            text = f.read()
+        tree = ast.parse(text, path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, ROOT), n) for n in names
+                    if n.split(".")[0] in ("optax", "orbax")]
+        if "ROADMAP A15" in text:
+            bad.append((os.path.relpath(path, ROOT), "ROADMAP A15"))
+    assert not bad, bad
+    jax_names = [n for n in dir(jpar) if not n.startswith("_")
+                 and callable(getattr(jpar, n))]
+    for name in ("make_pipe_mesh", "pipeline_apply", "stack_stage_params",
+                 "make_expert_mesh", "moe_apply", "make_seq_mesh",
+                 "ring_attention", "make_mesh", "volume_sharding",
+                 "param_sharding", "replicated", "halo_exchange",
+                 "crop_halo", "sharded_stencil"):
+        assert name in jax_names, name
+        assert callable(getattr(ppar, name)), name
+    missing = [n for n in jax_names if not hasattr(ppar, n)]
+    assert not missing, missing

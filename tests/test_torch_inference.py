@@ -176,10 +176,15 @@ def test_make_predictor_matches_jax(checkpoints, name, preprocess):
         (err.max(), err.mean())
 
 
-def test_predict_sharded_and_train_state_raise(checkpoints):
+def test_predict_sharded_and_train_state_raise(checkpoints, tmp_path):
     """``predict_sharded`` runs (it raised before the port had the mesh):
     two shards on the CPU give the per-block predictor's forwards, bit
-    for bit; the training-state checkpoints (A15) still raise."""
+    for bit.  The training-state checkpoints raised until the port had
+    training (A15): a sharded state (8 shards, (2, 2, 2)) saved after one
+    step restores bitwise onto its placements, with its step and count,
+    and the next step from either state gives the same loss and the same
+    parameters."""
+    from cluster_tools_tpu_torch.models import train as ptrain
     from cluster_tools_tpu_torch.parallel.mesh import shard_devices
     from cluster_tools_tpu_torch.workflows.inference import (make_predictor,
                                                              predict_sharded)
@@ -191,10 +196,77 @@ def test_predict_sharded_and_train_state_raise(checkpoints):
     pred = make_predictor(path, (8, 16, 16), (0, 0, 0), device="cpu")
     for i in range(3):
         np.testing.assert_array_equal(got[i], pred(raw[i]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        pckpt.save_train_state("x", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        pckpt.restore_train_state("x", None)
+
+    step, state, (x, y) = ptrain.train_step_for_mesh(
+        n_devices=8, features=(4, 8), shape=(2, 8, 16, 16), device="cpu")
+    state1, _ = step(state, x, y)
+    ckpt = str(tmp_path / "train_ckpt")
+    pckpt.save_train_state(ckpt, state1)
+    restored = pckpt.restore_train_state(ckpt, state)
+    assert restored.step == state1.step == 1
+    assert restored.opt_state.count == state1.opt_state.count == 1
+    assert restored.mesh is state.mesh
+    for k, pl in state1.placements.items():
+        assert restored.placements[k] == pl
+    for a, b in ((state1.params, restored.params),
+                 (state1.opt_state.mu, restored.opt_state.mu),
+                 (state1.opt_state.nu, restored.opt_state.nu)):
+        for k in a:
+            assert len(a[k]) == len(b[k]) == 8
+            for sa, sb in zip(a[k], b[k]):
+                assert torch.equal(sa, sb), k
+    s_a, loss_a = step(state1, x, y)
+    s_b, loss_b = step(restored, x, y)
+    np.testing.assert_allclose(float(loss_a), float(loss_b), rtol=1e-6)
+    for k in s_a.params:
+        assert all(torch.equal(u, v) for u, v in zip(s_a.params[k],
+                                                     s_b.params[k])), k
+    # an unsharded state restores onto an unsharded layout
+    whole = ptrain.unplace_state(state1)
+    pckpt.save_train_state(str(tmp_path / "whole"), whole)
+    back = pckpt.restore_train_state(str(tmp_path / "whole"), whole)
+    assert not back.sharded and back.step == 1
+    assert all(torch.equal(v, back.params[k])
+               for k, v in whole.params.items())
+
+
+def test_jax_train_state_carries_across_and_back():
+    """A JAX ``TrainState`` (flax params, optax adamw state after one
+    update, step) taken to the port and back equals itself leaf by leaf;
+    in the port, the moments carry the kernels' transposes and flips as
+    the parameters do."""
+    import optax
+
+    from cluster_tools_tpu.models import train as jtrain
+
+    params = _jax_params(MODELS[0][1], 1, 5)
+    rng = np.random.RandomState(6)
+    grads = jax.tree_util.tree_map(
+        lambda a: rng.randn(*a.shape).astype("float32"), params)
+    opt = jtrain.make_optimizer(1e-3)
+    opt_state = opt.init(params)
+    updates, opt_state = opt.update(grads, opt_state, params)
+    params = optax.apply_updates(params, updates)
+    state = jtrain.TrainState(params, opt_state, jnp.asarray(1, jnp.int32))
+    leaves = jax.tree_util.tree_map(np.asarray, state)
+
+    port = pckpt.train_state_from_flax(leaves, device="cpu")
+    assert port.step == 1 and port.opt_state.count == 1
+    sd = pckpt.flax_params_to_state_dict(leaves.params)
+    mu = pckpt.flax_params_to_state_dict(leaves.opt_state[0].mu)
+    for k in sd:
+        assert torch.equal(port.params[k], sd[k])
+        assert torch.equal(port.opt_state.mu[k], mu[k])
+    back = pckpt.train_state_to_flax(port)
+    for want, got in ((leaves.params, back.params),
+                      (leaves.opt_state[0].mu, back.opt_state[0].mu),
+                      (leaves.opt_state[0].nu, back.opt_state[0].nu)):
+        want, got = pckpt._flatten(want), pckpt._flatten(got)
+        assert set(want) == set(got)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert int(back.opt_state[0].count) == int(leaves.opt_state[0].count)
+    assert int(back.step) == int(leaves.step)
 
 
 # ---------------------------------------------------------------------------
