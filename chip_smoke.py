@@ -154,7 +154,19 @@ sources, then runs eighteen phases, each of which must pass:
    writer, read back by its reader equal to what the task computed; (d)
    a ``(50, 256, 256)`` corner of the crop as raw Knossos cubes (128^3,
    zero-padded) read through ``file_reader(".knossos")`` equal to the
-   crop.  The random-forest workflows (``LearningWorkflow``,
+   crop; (e) the formats other tools write, which the port reads with
+   its own decoders: every fixture of ``tests/data/torch_formats/``
+   (tensorstore's zarr and N5 with blosc Zstd, Snappy and the bitshuffle,
+   zarr ``zstd``, ``bz2`` and F order, N5 ``bzip2``, ``xz`` and
+   ``zstd``; h5py's ``libver="latest"`` HDF5 with every chunk index,
+   dense links and attributes, LZF, scale-offset, compound types and
+   soft links) read through ``file_reader`` identical to the array
+   ``make_fixtures.expected`` regenerates, each decoder's MB/s on the
+   fixtures' chunks; then the fused chain on the ``(32, 96, 96)``
+   boundary map held in zarr (F order, blosc Zstd, bitshuffle), in
+   ``libver="latest"`` HDF5 (LZF) and in N5 (raw, written here): the
+   fragments and the segmentation identical, 3 kernel launches per
+   block per run.  The random-forest workflows (``LearningWorkflow``,
    ``EdgeCostsWorkflow(rf_path=...)``) need sklearn, which the card's
    machine lacks: the CPU tests hold them;
 17. the multi-device paths with 4 shards on the one card (the global
@@ -3638,6 +3650,13 @@ H5_CHUNKS = [25, 256, 256]
 ZARR_CHUNKS = [25, 256, 256]
 #: 16d's corner of the crop, in Knossos cubes of 128^3
 KNOSSOS_CORNER = (50, 256, 256)
+#: 16e's fixtures (written by tensorstore and h5py, their arrays
+#: regenerated by ``make_fixtures.expected``), and the fused chain's
+#: blocks on their ``(32, 96, 96)`` boundary map
+FORMATS_DIR = os.path.join("tests", "data", "torch_formats")
+FORMATS_BLOCK = [32, 48, 48]
+#: 16e decodes each fixture's chunks for at least this long for its rate
+DECODE_S = 0.1
 
 
 def h5_fused_path(root: str, crop_store: str):
@@ -3812,6 +3831,141 @@ def knossos_path(root: str, crop_store: str):
         f"{read_s} corner == crop {ok}")
     if not ok or shape != tuple(g * bs for g in grid):
         raise AssertionError("16d: the Knossos read differs")
+
+
+def _chunk_decoders(ds):
+    """A function decoding every stored chunk of a dataset the port's
+    ``file_reader`` opened (zarr and N5: the chunk files' bytes held in
+    memory; HDF5: its chunk index's entries), and their plain bytes; None
+    for an HDF5 dataset that is not chunked."""
+    from itertools import product
+
+    from cluster_tools_tpu_torch.core.storage import _H5Dataset
+
+    if isinstance(ds, _H5Dataset):
+        inner = ds._ds
+        if inner.chunks is None:
+            return None
+        entries = list(inner._obj.index().items())
+        nbytes = len(entries) * int(np.prod(inner.chunks)) * \
+            inner.dtype.itemsize
+
+        def decode():
+            for pos, entry in entries:
+                inner._decode_chunk(entry, pos)
+        return decode, nbytes
+    grid = [range(-(-s // c)) for s, c in zip(ds.shape, ds.chunks)]
+    raws = []
+    for cid in product(*grid):
+        with open(ds._chunk_file(cid), "rb") as fh:
+            raws.append(fh.read())
+    nbytes = len(raws) * int(np.prod(ds.chunks)) * ds.dtype.itemsize
+
+    def decode():
+        for raw in raws:
+            ds._codec.decode(raw)
+    return decode, nbytes
+
+
+def run_chain_into(workdir: str, in_path: str, out_store: str, block,
+                   device: str, tag: str):
+    """The fused chain (default execution) reading ``bmap`` of
+    ``in_path`` and writing ``ws``/``seg`` into ``out_store``; returns
+    (wall s, fragments, segmentation)."""
+    import cluster_tools_tpu_torch as ctp
+    from cluster_tools_tpu_torch.core.config import ConfigDir
+
+    cfg_dir = os.path.join(workdir, f"configs{tag}")
+    ConfigDir(cfg_dir).write_global_config({"block_shape": list(block),
+                                            "device": device})
+    ConfigDir(cfg_dir).write_task_config("fused_segmentation", {})
+    tmp = os.path.join(workdir, f"tmp{tag}")
+    wf = ctp.MulticutSegmentationWorkflow(
+        input_path=in_path, input_key="bmap", ws_path=out_store,
+        ws_key="ws", problem_path=os.path.join(workdir, f"problem{tag}.n5"),
+        output_path=out_store, output_key="seg", tmp_folder=tmp,
+        config_dir=cfg_dir, max_jobs=os.cpu_count() or 1, target="gpu",
+        n_scales=1, fused=True)
+    wall, ws, seg, _ = _build(wf, tmp, out_store, "ws", "seg", device)
+    return wall, ws, seg
+
+
+def formats_path(root: str, repo: str, device: str = "cuda"):
+    """Phase 16e: every fixture of ``tests/data/torch_formats/`` read
+    through the port identical to its regenerated array, each decoder's
+    MB/s on the fixtures' chunks, then the fused chain on the boundary
+    map from zarr (F order, blosc Zstd, bitshuffle), from
+    ``libver="latest"`` HDF5 (LZF) and from N5 (raw, written here), all
+    three identical with 3 kernel launches per block.  Returns (the
+    chain's launches, MB/s by decoder)."""
+    import importlib.util
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.core.blocking import Blocking
+    from cluster_tools_tpu_torch.core.storage import file_reader
+
+    src = os.path.join(repo, FORMATS_DIR)
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", os.path.join(src, "make_fixtures.py"))
+    mf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mf)
+    wd = os.path.join(root, "formats")
+    # a copy: nothing is written into the checkout
+    shutil.copytree(src, wd, ignore=shutil.ignore_patterns("__pycache__",
+                                                           "*.py"))
+    rates = {}
+    for container, key, name, codec in mf.CASES:
+        want = mf.expected(name)
+        with file_reader(os.path.join(wd, container), "r") as f:
+            ds = f[key]
+            got = ds[...]
+            if not (got.dtype == want.dtype and got.shape == want.shape
+                    and got.tobytes() == want.tobytes()):
+                raise AssertionError(f"16e: {container}/{key} differs from "
+                                     f"its regenerated {name}")
+            job = _chunk_decoders(ds)
+            if job is None:
+                continue
+            decode, nbytes = job
+            n, t0 = 0, time.perf_counter()
+            while n == 0 or time.perf_counter() - t0 < DECODE_S:
+                decode()
+                n += 1
+            acc = rates.setdefault(codec, [0, 0.0])
+            acc[0] += n * nbytes
+            acc[1] += time.perf_counter() - t0
+    mb_s = {c: b / 1e6 / s for c, (b, s) in sorted(rates.items())}
+    log(f"formats fixtures {len(mf.CASES)} identical True decode_mb_s "
+        f"{json.dumps(mb_s)}")
+    bmap = mf.expected("bmap")
+    n5 = os.path.join(wd, "bmap.n5")
+    with file_reader(n5) as f:
+        f.require_dataset("bmap", shape=bmap.shape, chunks=FORMATS_BLOCK,
+                          dtype=bmap.dtype)[:] = bmap
+    n_blocks = Blocking(list(bmap.shape), FORMATS_BLOCK).n_blocks
+    out, launches = {}, 0
+    for name, store in (("zarr", os.path.join(wd, "bmap.zarr")),
+                        ("h5", os.path.join(wd, "bmap.h5")), ("n5", n5)):
+        kernels.reset_counts()
+        wall, ws, seg = run_chain_into(
+            os.path.join(wd, f"run_{name}"), store,
+            os.path.join(wd, f"out_{name}.n5"), FORMATS_BLOCK, device,
+            f"_16e_{name}")
+        calls = kernels.counts()["minplus"]
+        launches += calls
+        out[name] = (ws, seg)
+        log(f"formats-fused {name} wall_s {wall} minplus launches {calls} "
+            f"n_fragments {int(ws.max())} n_segments {len(np.unique(seg))}")
+        if device == "cuda" and calls != 3 * n_blocks:
+            raise AssertionError(f"16e {name}: min-plus kernel launched "
+                                 f"{calls} times for {n_blocks} blocks")
+    same = all(np.array_equal(out[k][i], out["n5"][i])
+               for k in ("zarr", "h5") for i in (0, 1))
+    log(f"formats-fused fragments and segmentation zarr == h5 == n5 {same}")
+    if not same or out["n5"][0].shape != bmap.shape or \
+            int(out["n5"][0].max()) < 2:
+        raise AssertionError("16e: the chain's runs differ")
+    return launches, mb_s
 
 
 # ---------------------------------------------------------------------------
@@ -4870,6 +5024,7 @@ def main() -> int:
         phase("16d", knossos_path, root, crop_store)
         if kernels.counts()["minplus"] != 0:
             raise AssertionError("phases 16b-d launched the min-plus kernel")
+        formats_launches, _ = phase("16e", formats_path, root, repo)
         # phase 17: the multi-device paths, 4 shards on the one card
         mesh_launches = mesh_paths(root, BLOCK, gt, record["quality"],
                                    crop_store, ckpt)
@@ -4888,15 +5043,16 @@ def main() -> int:
                 **{f"12a-{m}": n for m, n in variant_launches.items()},
                 **{f"12b-{m}": n for m, n in crop_launches.items()},
                 **serve_launches, **filter_launches, "15": late["minplus"],
-                "16a": h5_launches, **mesh_launches}
+                "16a": h5_launches, "16e": formats_launches,
+                **mesh_launches}
     line = {"kernels": [{
         "name": k.name, "route": k.route, "source": k.source,
         "replaces": k.replaces,
         # the main paths' runs: the fused chain, the split chain, the fused
         # chain's hybrid and legacy executions, the watershed's options,
         # the ROI pipeline card against CPU and on the resident server, the
-        # filter-bank chain and the object fit, the fused chain on HDF5,
-        # the mesh program, the mesh-resident chain and the mesh rounds
+        # filter-bank chain and the object fit, the fused chain on HDF5 and
+        # on the other tools' formats, the mesh program, the mesh-resident chain and the mesh rounds
         "launches": sum(by_phase.values()),
         "launches_by_phase": by_phase,
         "max_abs_err": max_err,

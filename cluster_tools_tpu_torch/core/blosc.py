@@ -12,11 +12,16 @@ bit 4 blocks not split, bits 5-7 the codec: 0 BloscLZ, 1 LZ4 and LZ4HC,
 2 Snappy, 3 zlib, 4 Zstd), ``typesize``, then uint32 ``nbytes`` (plain
 size), ``blocksize`` and ``cbytes`` (the frame's size).
 
-Decoded here: LZ4 and LZ4HC, BloscLZ and zlib, with shuffle 0 and 1.  The
-codec streams run in C++ (``native/src/codecs.cpp``); zlib is the
-standard library's.  Snappy, Zstd and bitshuffle raise
-``NotImplementedError`` naming them.  Encoded here: LZ4 with shuffle 0 or
-1 (``clevel`` 0 stores the buffer plainly; any other level gives the same
+Decoded here: every codec of Blosc1 (BloscLZ, LZ4 and LZ4HC, Snappy, zlib
+and Zstd: one Zstandard frame per stream) with no shuffle, the byte
+shuffle or the bitshuffle, split or not.  The codec streams and both
+unshuffles run in C++ (``native/src/codecs.cpp``); zlib is the standard
+library's.  A codec id past 4 raises ``NotImplementedError`` naming it.
+The bitshuffle follows c-blosc by the frame's format version: in version
+2 frames (what c-blosc 1.x writes) a block whose element count is not a
+multiple of 8 is stored as it lies; from version 3 on the elements past
+the last full group of 8 are.  Encoded here: LZ4 with shuffle 0 or 1
+(``clevel`` 0 stores the buffer plainly; any other level gives the same
 LZ4 streams: the frame carries no level).  The bytes need not equal
 c-blosc's; any Blosc1 decoder reads them.
 """
@@ -30,6 +35,7 @@ from typing import Tuple
 import numpy as np
 
 from ..native import codecs as _codecs
+from .codecs import as_u8 as _as_u8
 
 HEADER = 16
 _SHUFFLE, _MEMCPYED, _BITSHUFFLE, _NO_SPLIT = 0x01, 0x02, 0x04, 0x10
@@ -38,12 +44,6 @@ _CODECS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib", 4: "zstd"}
 BLOCKSIZE = 1 << 18
 #: buffers below this are stored plainly (c-blosc's MIN_BUFFERSIZE)
 MIN_BUFFERSIZE = 128
-
-
-def _as_u8(data) -> np.ndarray:
-    if isinstance(data, np.ndarray):
-        return np.ascontiguousarray(data).reshape(-1).view(np.uint8)
-    return np.frombuffer(data, np.uint8)
 
 
 def header(frame) -> Tuple[int, int, int, int, int, int]:
@@ -73,21 +73,22 @@ def decompress(frame) -> np.ndarray:
             raise ValueError("truncated blosc frame (stored plainly)")
         out[:] = src[HEADER:HEADER + nbytes]
         return out
-    if flags & _BITSHUFFLE:
-        raise NotImplementedError("blosc bitshuffle (shuffle 2) is not "
-                                  "supported")
-    name = _CODECS.get(codec, f"codec {codec}")
-    if name in ("snappy", "zstd") or codec not in _CODECS:
-        raise NotImplementedError(f"blosc compressor {name!r} is not "
+    name = _CODECS.get(codec)
+    if name is None:
+        raise NotImplementedError(f"blosc compressor (codec {codec}) is not "
                                   "supported")
     lib = _codecs()
-    decode = {"lz4": lib.lz4_decompress,
-              "blosclz": lib.blosclz_decompress}.get(name)
+    decode = {"lz4": lib.lz4_decompress, "blosclz": lib.blosclz_decompress,
+              "snappy": lib.snappy_decompress,
+              "zstd": lib.zstd_decompress}.get(name)
     nblocks = -(-nbytes // blocksize)
     leftover = nbytes % blocksize
+    if HEADER + 4 * nblocks > len(src):
+        raise ValueError("truncated blosc frame (block starts)")
     starts = np.frombuffer(src, "<i4", nblocks, HEADER)
     shuffled = bool(flags & _SHUFFLE) and typesize > 1
-    tmp = np.empty(blocksize, np.uint8) if shuffled else None
+    bitshuffled = not shuffled and bool(flags & _BITSHUFFLE)
+    tmp = np.empty(blocksize, np.uint8) if shuffled or bitshuffled else None
     base = src.ctypes.data
     for b in range(nblocks):
         last = b == nblocks - 1 and leftover
@@ -96,7 +97,8 @@ def decompress(frame) -> np.ndarray:
         if bsize % nsplits:
             raise ValueError("corrupt blosc frame (split of a block)")
         neblock = bsize // nsplits
-        dest = tmp if shuffled else out[b * blocksize:]
+        unshuffle = shuffled or (bitshuffled and bsize >= typesize)
+        dest = tmp if unshuffle else out[b * blocksize:]
         pos = int(starts[b])
         for j in range(nsplits):
             if pos < HEADER or pos + 4 > len(src):
@@ -113,13 +115,21 @@ def decompress(frame) -> np.ndarray:
                 if len(plain) != neblock:
                     raise ValueError("corrupt blosc zlib stream")
                 dest[at:at + neblock] = np.frombuffer(plain, np.uint8)
-            elif decode(base + pos, n, dest.ctypes.data + at,
-                        neblock) != neblock:
-                raise ValueError(f"corrupt blosc {name} stream")
+            else:
+                got = decode(base + pos, n, dest.ctypes.data + at, neblock)
+                if got == -2 and name == "zstd":
+                    raise NotImplementedError(
+                        "blosc zstd stream with a dictionary ID "
+                        "(dictionaries are not supported)")
+                if got != neblock:
+                    raise ValueError(f"corrupt blosc {name} stream")
             pos += n
         if shuffled:
             lib.byte_unshuffle(tmp.ctypes.data, bsize, typesize,
                                out.ctypes.data + b * blocksize)
+        elif unshuffle:
+            lib.bitunshuffle(tmp.ctypes.data, bsize, typesize, int(src[0]),
+                             out.ctypes.data + b * blocksize)
     return out
 
 

@@ -1,24 +1,34 @@
 """HDF5 files read and written with numpy and the standard library.
 
 The reference keeps raw EM data and ilastik projects in HDF5 through h5py;
-this module reads and writes the subset of the format that h5py writes by
-default (``libver="earliest"``), so the package needs no HDF5 library:
+this module reads what h5py writes, by default (``libver="earliest"``)
+and with ``libver="latest"``, and writes h5py's default format, so the
+package needs no HDF5 library.  It reads:
 
-* superblock versions 0 and 1 (8-byte offsets and lengths);
-* version 1 object headers with continuation blocks;
+* superblock versions 0 to 3 (8-byte offsets and lengths);
+* version 1 and 2 object headers with their continuation blocks;
 * groups as symbol tables (a v1 B-tree of symbol-table nodes and a local
-  heap), and the link messages of compact new-style groups;
-* data layouts: contiguous, compact, and chunked with the v1 B-tree index;
-  filters deflate, shuffle and fletcher32 (the checksum is stripped, not
-  verified);
+  heap), and as link messages, compact or dense (a fractal heap indexed
+  by a version 2 B-tree); hard links and soft links, resolved as h5py
+  resolves them;
+* data layouts: contiguous, compact, and chunked with the v1 B-tree
+  index or, in layout version 4, the single-chunk, implicit, fixed-array,
+  extensible-array and version 2 B-tree indexes;
+* filters deflate, shuffle, fletcher32 (verified: a mismatch raises
+  ``OSError``), LZF and scale-offset (integers, and floats in D-scale
+  mode);
 * datatypes: fixed-point, IEEE float, fixed-length strings,
   variable-length strings (in global heap collections), h5py's bool enum
-  (other enums read as their base integers);
-* scalar and simple dataspaces, compact attributes.
+  (other enums read as their base integers), compounds of these (numpy
+  structured arrays);
+* scalar and simple dataspaces, compact and dense attributes.
 
-Anything else raises ``NotImplementedError`` naming the structure:
-superblock versions 2 and 3, version 2 object headers, dense link or
-attribute storage, other filters (LZF, szip, ...), other datatype classes.
+The structures of ``libver="latest"`` live in ``core/hdf5_v2.py``; their
+lookup3 checksums are verified, a mismatch raising ``OSError`` naming the
+structure.  Anything else raises ``NotImplementedError`` naming it:
+external and user-defined links, szip and the other plugin filters,
+other datatype classes, shared messages, virtual layouts; and writing to
+a file whose superblock is of version 2 or 3.
 
 The writer is log-structured.  Chunks and contiguous data are appended at
 the end of the file as they are written.  The metadata of every object
@@ -27,7 +37,8 @@ local heap, a dataset's chunk B-tree) is appended again at each flush,
 bottom-up to the root group, and the superblock at offset 0 is rewritten
 to point at the new root.  Replaced metadata and chunks stay in the file
 as unreferenced space.  Objects that did not change keep their headers, so
-``"a"`` on a file that h5py wrote adds to it in place.
+``"a"`` on a file that h5py wrote in its default format adds to it in
+place.
 
 All handles on one path in one process share one state (as h5py's do):
 each close flushes it, the last one closes the file descriptor.  A handle
@@ -47,6 +58,8 @@ from itertools import product
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from . import codecs, hdf5_v2
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFFFFFFFFFFFFFF
@@ -96,16 +109,19 @@ def _padded(b: bytes) -> bytes:
 
 class _DType:
     """A decoded HDF5 datatype: ``kind`` is ``num``, ``bool``, ``fstr``,
-    ``vlen`` or ``enum``; ``disk`` the numpy dtype of one stored element;
-    ``mem`` what reads return; ``raw`` the encoded message."""
+    ``vlen``, ``enum`` or ``compound``; ``disk`` the numpy dtype of one
+    stored element; ``mem`` what reads return; ``raw`` the encoded
+    message."""
 
     def __init__(self, kind: str, disk: np.dtype, raw: bytes,
-                 charset: int = 0):
+                 charset: int = 0, mem: Optional[np.dtype] = None):
         self.kind = kind
         self.disk = np.dtype(disk)
         self.raw = raw
         self.charset = charset  # vlen strings: 0 ASCII, 1 UTF-8
-        if kind == "bool":
+        if mem is not None:  # compound: its members as they read
+            self.mem = np.dtype(mem)
+        elif kind == "bool":
             self.mem = np.dtype(bool)
         elif kind == "vlen":
             self.mem = np.dtype(object)
@@ -157,6 +173,8 @@ def _decode_dtype(buf, off: int = 0) -> Tuple[_DType, int]:
                 == [(b"FALSE", 0), (b"TRUE", 1)]):
             return _DType("bool", base.disk, raw), end - off
         return _DType("enum", base.disk, raw), end - off
+    if cls == 6:
+        return _decode_compound(buf, off, version, bits, size, end)
     if cls == 9:
         if bits[0] & 0x0F != 1:
             raise NotImplementedError(
@@ -167,6 +185,51 @@ def _decode_dtype(buf, off: int = 0) -> Tuple[_DType, int]:
                       charset=bits[1] & 0x0F), end - off
     raise NotImplementedError(
         f"HDF5 {_DT_CLASSES.get(cls, f'class {cls}')} datatype")
+
+
+def _decode_compound(buf, off: int, version: int, bits: bytes, size: int,
+                     end: int) -> Tuple[_DType, int]:
+    """A compound datatype as the numpy structured dtype h5py reads it
+    as: the members' names, offsets and types, the element's size."""
+    n_members = bits[0] | (bits[1] << 8)
+    names, disk, mem, offsets = [], [], [], []
+    off_bytes = next(n for n in (1, 2, 3, 4) if size < 1 << (8 * n)) \
+        if version >= 3 else 4
+    for _ in range(n_members):
+        stop = bytes(buf[end:end + 65536]).index(b"\0")
+        names.append(bytes(buf[end:end + stop]).decode("utf-8"))
+        end += stop + 1 if version >= 3 else _pad8(stop + 1)
+        offsets.append(int.from_bytes(bytes(buf[end:end + off_bytes]),
+                                      "little"))
+        end += off_bytes
+        if version == 1:
+            if buf[end]:
+                raise NotImplementedError("HDF5 compound member with "
+                                          "array dimensions (version 1)")
+            end += 28
+        member, n = _decode_dtype(buf, end)
+        end += n
+        if member.kind == "vlen":
+            raise NotImplementedError("HDF5 compound member of a "
+                                      "variable-length type")
+        disk.append(member.disk)
+        mem.append(member.mem)
+    spec = {"names": names, "offsets": offsets, "itemsize": size}
+    return (_DType("compound", np.dtype({**spec, "formats": disk}),
+                   bytes(buf[off:end]),
+                   mem=np.dtype({**spec, "formats": mem})), end - off)
+
+
+def _as_read(dt: _DType, arr: np.ndarray) -> np.ndarray:
+    """Stored elements as h5py returns them: bools as bools, compounds
+    member by member into zeroed records (h5py's padding bytes are 0)."""
+    if dt.kind == "bool":
+        return arr != 0
+    if dt.kind == "compound":
+        out = np.zeros(arr.shape, dt.mem)
+        out[...] = arr
+        return out
+    return arr.astype(dt.mem)
 
 
 def _fixed_point(size: int, signed: bool) -> bytes:
@@ -249,6 +312,15 @@ def _decode_space(buf, off: int = 0) -> Optional[Tuple[int, ...]]:
     return tuple(int(d) for d in _u(f"{rank}Q", buf, dims_at))
 
 
+def _space_maxshape(buf) -> Tuple[int, ...]:
+    """The maximum dimensions of a simple dataspace message (``UNDEF``
+    for an unlimited axis; the dimensions where none are stored)."""
+    version, rank, flags = buf[0], buf[1], buf[2]
+    dims_at = 8 if version == 1 else 4
+    at = dims_at + (8 * rank if flags & 1 else 0)
+    return tuple(int(d) for d in _u(f"{rank}Q", buf, at))
+
+
 def _encode_space(shape: Tuple[int, ...]) -> bytes:
     rank = len(shape)
     return (struct.pack("<BBBB4x", 1, rank, 1 if rank else 0, 0)
@@ -323,6 +395,18 @@ def _encode_attr(name: str, dt: _DType, shape: Tuple[int, ...],
 # shared file state
 # ---------------------------------------------------------------------------
 
+class _SoftLink:
+    """A soft link: resolved by path each time it is opened, as h5py
+    resolves it (absolute, or relative to the group holding it)."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+
+#: HDF5's limit on soft links followed in one traversal (H5L_NUM_LINKS)
+_MAX_SOFT_LINKS = 16
+
+
 class _Obj:
     """An object of the file: its header address (None until written),
     the header messages kept verbatim when it is rewritten, and its
@@ -361,6 +445,12 @@ class _DatasetObj(_Obj):
         self.dt: Optional[_DType] = None
         self.layout = "chunked"
         self.chunks: Optional[Tuple[int, ...]] = None
+        self.maxshape: Tuple[int, ...] = ()
+        # layout version 4: the chunk index's type (None: a v1 B-tree),
+        # its parameters and the layout's flags
+        self.index_kind: Optional[int] = None
+        self.index_info: Dict[str, int] = {}
+        self.layout_flags = 0
         self.filters: List[Tuple[int, int, Tuple[int, ...]]] = []
         self.fill: Optional[bytes] = None
         self.btree = UNDEF
@@ -433,6 +523,17 @@ class _State:
         os.pwrite(self.fd, payload, addr)
         return addr
 
+    def require_writable(self) -> None:
+        """Raise unless this file takes writes: open writable, and in the
+        format the writer appends (superblock version 0 or 1)."""
+        if not self.writable:
+            raise OSError(f"{self.path} is open read-only")
+        if self.sb_version >= 2:
+            raise NotImplementedError(
+                f"writing to an HDF5 file with superblock version "
+                f"{self.sb_version} (libver='latest'): the writer appends "
+                "h5py's default format only")
+
     def reopen_writable(self) -> None:
         with self.lock:
             if not self.writable:
@@ -447,6 +548,12 @@ class _State:
             raise OSError(f"{self.path} is not an HDF5 file (no signature "
                           "at offset 0)")
         version = head[8]
+        if version in (2, 3):
+            root_addr, eof = hdf5_v2.superblock(self, head)
+            self.sb_version = version
+            self.eof = _pad8(max(eof, os.fstat(self.fd).st_size))
+            self.root = self.load_group(root_addr, None)
+            return
         if version not in (0, 1):
             raise NotImplementedError(f"HDF5 superblock version {version}")
         if head[13] != 8 or head[14] != 8:
@@ -484,7 +591,7 @@ class _State:
     def messages(self, addr: int) -> List[Tuple[int, int, bytes]]:
         head = self.read(addr, 16)
         if head[:4] == b"OHDR":
-            raise NotImplementedError("HDF5 version 2 object header")
+            return hdf5_v2.object_header(self, addr)
         if head[0] != 1:
             raise NotImplementedError(f"HDF5 object header version "
                                       f"{head[0]}")
@@ -522,10 +629,11 @@ class _State:
                 obj.attrs[name] = data
             elif mtype == 0x15:
                 flags = data[1]
-                heap = _u("Q", data, 2 + (2 if flags & 1 else 0))[0]
+                heap, names = _u("QQ", data, 2 + (2 if flags & 1 else 0))
                 if heap != UNDEF:
-                    raise NotImplementedError(
-                        "HDF5 dense attribute storage")
+                    for raw in hdf5_v2.dense_attributes(
+                            self, heap, names, tracked=bool(flags & 1)):
+                        obj.attrs[_decode_attr(raw)[0]] = raw
             elif mtype in handled or mtype in _IGNORED:
                 if mtype not in (0x0, 0xA):
                     obj.kept.append((mtype, mflags, data))
@@ -546,9 +654,11 @@ class _State:
                 g.children.update(self._symbol_table(btree, heap))
             elif mtype == 0x2:
                 flags = data[1]
-                heap = _u("Q", data, 2 + (8 if flags & 1 else 0))[0]
+                heap, names = _u("QQ", data, 2 + (8 if flags & 1 else 0))
                 if heap != UNDEF:
-                    raise NotImplementedError("HDF5 dense link storage")
+                    for raw in hdf5_v2.dense_links(self, heap, names):
+                        name, target = _decode_link(raw)
+                        g.children[name] = target
             elif mtype == 0x6:
                 name, target = _decode_link(data)
                 g.children[name] = target
@@ -560,6 +670,10 @@ class _State:
             raise OSError(f"{self.path}: bad local heap at {heap}")
         size, _, data_addr = _u("QQQ", head, 8)
         names = self.read(data_addr, size)
+
+        def text(at: int) -> str:
+            return names[at:names.index(b"\0", at)].decode("utf-8")
+
         out = {}
         for snod in self._btree_children(btree, node_type=0, key_size=8):
             buf = self.read(snod, 8)
@@ -568,10 +682,10 @@ class _State:
             n = _u("H", buf, 6)[0]
             entries = self.read(snod + 8, 40 * n)
             for i in range(n):
-                name_off, obj, cache = _u("QQI", entries, 40 * i)
-                name = names[name_off:names.index(b"\0", name_off)]
-                # cache type 2: a soft link, kept as its kind's name
-                out[name.decode("utf-8")] = "soft link" if cache == 2 else obj
+                name_off, obj, cache, _, link = _u("QQIII", entries, 40 * i)
+                # cache type 2: a soft link, its value in the local heap
+                out[text(name_off)] = (_SoftLink(text(link)) if cache == 2
+                                       else obj)
         return out
 
     def _btree_children(self, addr: int, node_type: int, key_size: int
@@ -604,6 +718,7 @@ class _State:
                 if shape is None:
                     raise NotImplementedError("HDF5 null dataspace")
                 d.shape = shape
+                d.maxshape = _space_maxshape(data) if shape else ()
             elif mtype == 0x3:
                 d.dt = _decode_dtype(data)[0]
             elif mtype == 0x5:
@@ -612,13 +727,19 @@ class _State:
                 d.filters = _decode_filters(data)
             elif mtype == 0x8:
                 _decode_layout(d, data)
-        for fid, _, _ in d.filters:
-            if fid not in (1, 2, 3):
+        for fid, _, values in d.filters:
+            if fid not in (1, 2, 3, 6, 32000):
                 raise NotImplementedError(
                     f"HDF5 filter {_FILTERS.get(fid, fid)!r}")
+            if fid == 6 and (values[0] == 1 or values[6] != 0):
+                raise NotImplementedError(
+                    "HDF5 scale-offset filter in "
+                    f"{'E-scale mode' if values[0] == 1 else 'big-endian'}")
         return d
 
     def read_chunk_btree(self, d: _DatasetObj):
+        if d.index_kind is not None:
+            return hdf5_v2.chunk_index(self, d)
         rank = len(d.shape)
         key_size = 8 + 8 * (rank + 1)
         index = {}
@@ -686,10 +807,7 @@ class _State:
                 out[i] = (self.gheap_object(addr, idx)[:length]
                           if addr else b"")
             return out.reshape(shape)
-        arr = np.frombuffer(raw, dt.disk, n).reshape(shape)
-        if dt.kind == "bool":
-            return arr != 0
-        return arr.astype(dt.mem)
+        return _as_read(dt, np.frombuffer(raw, dt.disk, n).reshape(shape))
 
     def to_disk(self, dt: _DType, arr: np.ndarray) -> bytes:
         if dt.kind == "vlen":
@@ -716,9 +834,11 @@ class _State:
         if isinstance(obj, _GroupObj):
             entries = {}
             for name, child in obj.children.items():
-                if isinstance(child, str):
+                if isinstance(child, (str, _SoftLink)):
+                    kind = ("soft link" if isinstance(child, _SoftLink)
+                            else child)
                     raise NotImplementedError(
-                        f"rewriting a group that holds an HDF5 {child}")
+                        f"rewriting a group that holds an HDF5 {kind}")
                 entries[name] = (child if isinstance(child, int)
                                  else self._write_obj(child))
             obj.btree_heap = self._write_symbol_table(entries)
@@ -822,7 +942,10 @@ class _State:
                 + struct.pack(f"<{rank + 1}I", *d.chunks, d.dt.size))
 
 
-def _decode_link(data) -> Tuple[str, int]:
+def _decode_link(data) -> Tuple[str, Any]:
+    """(name, target) of a link message: a header address for a hard
+    link, a :class:`_SoftLink`, or the kind's name for an external or
+    user-defined link (opening it raises)."""
     version, flags = data[0], data[1]
     if version != 1:
         raise NotImplementedError(f"HDF5 link message version {version}")
@@ -840,10 +963,14 @@ def _decode_link(data) -> Tuple[str, int]:
     pos += width
     name = bytes(data[pos:pos + n]).decode("utf-8")
     pos += n
-    if link_type != 0:
-        raise NotImplementedError(
-            f"HDF5 {'soft' if link_type == 1 else 'external'} link {name!r}")
-    return name, _u("Q", data, pos)[0]
+    if link_type == 0:
+        return name, _u("Q", data, pos)[0]
+    if link_type == 1:
+        n = _u("H", data, pos)[0]
+        return name, _SoftLink(bytes(data[pos + 2:pos + 2 + n]).decode(
+            "utf-8"))
+    return name, ("external link" if link_type == 64
+                  else f"user-defined link (type {link_type})")
 
 
 def _decode_fill(data) -> Optional[bytes]:
@@ -880,7 +1007,9 @@ def _decode_layout(d: _DatasetObj, data) -> None:
             d.data_size = int(np.prod(d.shape)) * d.dt.size if d.dt else 0
         else:
             d.layout, d.btree, d.chunks = "chunked", addr, tuple(dims[:-1])
-    elif version == 3:
+    elif version == 4 and data[1] == 2:
+        hdf5_v2.decode_layout4(d, data)
+    elif version in (3, 4):
         cls = data[1]
         if cls == 0:
             size = _u("H", data, 2)[0]
@@ -960,6 +1089,7 @@ class AttributeManager:
     def __setitem__(self, name: str, value: Any) -> None:
         arr, dt = _value_and_type(value)
         state = self._obj.state
+        state.require_writable()
         raw = _encode_attr(name, dt, arr.shape, state.to_disk(dt, arr))
         if len(raw) > 65000:
             raise NotImplementedError(
@@ -1000,8 +1130,16 @@ class Group:
         self.name = name
         self.attrs = AttributeManager(handle, obj)
 
-    def _child(self, g: _GroupObj, name: str) -> _Obj:
+    def _child(self, g: _GroupObj, name: str, hops: int = 0) -> _Obj:
         child = g.children[name]
+        if isinstance(child, _SoftLink):
+            if hops >= _MAX_SOFT_LINKS:
+                raise KeyError(f"too many soft links resolving {name!r}")
+            obj = self._walk(g, child.path, hops + 1)
+            if obj is None:
+                raise KeyError(f"dangling soft link {name!r} -> "
+                               f"{child.path!r}")
+            return obj
         if isinstance(child, str):
             raise NotImplementedError(f"HDF5 {child} {name!r}")
         if isinstance(child, int):
@@ -1011,13 +1149,25 @@ class Group:
                     child = g.children[name] = g.state.load(child, g)
         return child
 
-    def _resolve(self, path: str) -> Optional[_Obj]:
-        obj: _Obj = self._obj
+    def _walk(self, start: _Obj, path: str, hops: int) -> Optional[_Obj]:
+        """The object at ``path`` from ``start`` (from the root if the path
+        is absolute), or None where a name is missing."""
+        obj = start.state.root if path.startswith("/") else start
         for part in _split(path):
+            if part == ".":  # HDF5 reads "." as here and ".." as a name
+                continue
             if not isinstance(obj, _GroupObj) or part not in obj.children:
                 return None
-            obj = self._child(obj, part)
+            obj = self._child(obj, part, hops)
         return obj
+
+    def _resolve(self, path: str) -> Optional[_Obj]:
+        """The object at ``path`` below this group, or None (also behind
+        a dangling soft link)."""
+        try:
+            return self._walk(self._obj, "/".join(_split(path)), 0)
+        except KeyError:
+            return None
 
     def _wrap(self, obj: _Obj, path: str):
         name = "/" + "/".join(_split(self.name) + _split(path))
@@ -1026,21 +1176,25 @@ class Group:
         return Dataset(self.file, obj, name)
 
     def __getitem__(self, path: str):
-        obj = self._resolve(path)
+        obj = self._walk(self._obj, "/".join(_split(path)), 0)
         if obj is None:
             raise KeyError(f"{path!r} does not exist in {self.name!r}")
         return self._wrap(obj, path)
 
     def __contains__(self, path: str) -> bool:
-        return self._resolve(path) is not None
+        """Whether the link at ``path`` exists (a dangling soft link
+        does, as in h5py)."""
+        parts = _split(path)
+        parent = self._resolve("/".join(parts[:-1]))
+        return isinstance(parent, _GroupObj) and (
+            not parts or parts[-1] in parent.children)
 
     def keys(self) -> List[str]:
         return sorted(self._obj.children)
 
     def _writable(self) -> _State:
         state = self._obj.state
-        if not state.writable:
-            raise OSError(f"{state.path} is open read-only")
+        state.require_writable()
         return state
 
     def _parent_of(self, path: str, create: bool) -> Tuple[_GroupObj, str]:
@@ -1230,17 +1384,38 @@ class Dataset:
             if mask & (1 << i):
                 continue
             fid, _, values = d.filters[i]
-            if fid == 1:
-                raw = zlib.decompress(raw)
-            elif fid == 2:
-                raw = _unshuffle(raw, values[0] if values else d.dt.size)
-            elif fid == 3:
+            if fid == 3:
                 raw, stored = raw[:-4], raw[-4:]
                 if not _fletcher32_matches(raw, stored):
                     raise OSError(
                         f"Can't read data (fletcher32 checksum mismatch in "
                         f"dataset {self.name!r}, chunk {tuple(pos)})")
+                continue
+            try:  # a stream that does not decode: h5py's OSError
+                raw = self._unfilter(fid, values, raw)
+            except (zlib.error, ValueError) as e:
+                raise OSError(
+                    f"Can't read data ({_FILTERS[fid]} failed in dataset "
+                    f"{self.name!r}, chunk {tuple(pos)}: {e})") from e
+        if len(raw) != int(np.prod(d.chunks)) * d.dt.size:
+            raise OSError(f"Can't read data (chunk {tuple(pos)} of dataset "
+                          f"{self.name!r} holds {len(raw)} bytes)")
         return state.from_disk(d.dt, raw, d.chunks)
+
+    def _unfilter(self, fid: int, values, raw: bytes) -> bytes:
+        """One filter of the pipeline undone (fletcher32 aside)."""
+        d = self._obj
+        if fid == 1:
+            return zlib.decompress(raw)
+        if fid == 2:
+            return _unshuffle(raw, values[0] if values else d.dt.size)
+        if fid == 6:
+            return _scaleoffset_decode(raw, values, d.dt)
+        # LZF (32000): its plain size is the chunk's, or the filter's
+        # third value where a filter before it changed the size
+        return codecs.lzf_decompress(raw, max(
+            values[2] if len(values) > 2 else 0,
+            int(np.prod(d.chunks)) * d.dt.size)).tobytes()
 
     def _encode_chunk(self, arr: np.ndarray) -> bytes:
         """The chunk's stored bytes: deflated where the dataset says so
@@ -1270,8 +1445,7 @@ class Dataset:
             # only the selection is read from the file
             mm = np.memmap(d.state.path, d.dt.disk, "r", d.data_addr,
                            d.shape)
-            out = np.array(mm[bb])
-            return out != 0 if d.dt.kind == "bool" else out
+            return _as_read(d.dt, np.array(mm[bb]))
         if d.shape == () or d.layout != "chunked":
             full = self._read_all()
             return full[bb] if bb != () else full[()]
@@ -1295,8 +1469,7 @@ class Dataset:
         from .storage import _normalize_index
 
         d, state = self._obj, self._obj.state
-        if not state.writable:
-            raise OSError(f"{state.path} is open read-only")
+        state.require_writable()
         if d.layout != "chunked":
             full = self._read_all().copy() if d.shape else None
             if d.shape:
@@ -1390,6 +1563,60 @@ def _fletcher32_matches(raw: bytes, stored: bytes) -> bool:
     swapped = bytes([stored[1], stored[0], stored[3], stored[2]])
     return want in (int.from_bytes(stored, "little"),
                     int.from_bytes(swapped, "little"))
+
+
+def _scaleoffset_decode(raw: bytes, values, dt: _DType) -> bytes:
+    """A chunk of HDF5's scale-offset filter (H5Zscaleoffset.c) decoded:
+    a 21-byte head (the bits per element, the minimum), then each element
+    less the minimum in that many bits, most significant bit first; the
+    all-ones value stands for the fill value where one is defined.
+    Integers (minimum bits), and floats in D-scale mode: the stored
+    integers over 10**D plus the minimum, in the float's precision."""
+    scale_type, factor, nelmts, cls, size, sign = values[:6]
+    fill_defined = values[7]
+    if len(raw) < 21:
+        raise ValueError("corrupt scale-offset chunk (no head)")
+    minbits = int.from_bytes(raw[:4], "little")
+    minval = int.from_bytes(raw[5:5 + min(raw[4], 8)], "little")
+    if minbits > 8 * size or size not in (1, 2, 4, 8):
+        raise ValueError(f"corrupt scale-offset chunk ({minbits} bits)")
+    itype = np.dtype(f"<{'i' if cls or sign else 'u'}{size}")
+    if minbits == 8 * size:  # stored at full precision
+        return raw[21:21 + nelmts * size]
+    if minbits == 0:
+        vals = np.zeros(nelmts, np.uint64)
+    else:
+        bits = np.unpackbits(np.frombuffer(raw, np.uint8, offset=21),
+                             bitorder="big")
+        if len(bits) < nelmts * minbits:
+            raise ValueError("truncated scale-offset chunk")
+        wide = np.zeros((nelmts, 64), np.uint8)
+        wide[:, 64 - minbits:] = bits[:nelmts * minbits].reshape(nelmts,
+                                                                 minbits)
+        vals = np.packbits(wide, axis=1).view(">u8").reshape(-1).astype(
+            np.uint64)
+    fill_code = (1 << minbits) - 1
+    fill = (np.frombuffer(struct.pack(f"<{len(values) - 8}I", *values[8:]),
+                          np.uint8)[:size].view(dt.disk.newbyteorder("<"))
+            [0] if fill_defined else None)
+    is_fill = (vals == fill_code) if fill_defined else None
+    if cls == 0:  # integers: the value plus the minimum, modulo the width
+        out = (vals + np.uint64(minval)).astype(f"<u{size}").view(itype)
+    else:  # D-scale floats: the bits as a signed integer of the width
+        ftype = np.dtype(f"<f{size}")
+        lo = minval & ((1 << (8 * size)) - 1)
+        low = np.array([lo], f"<u{size}").view(ftype)[0]
+        ints = vals.astype(f"<u{size}").view(itype)
+        # powf / pow of 10 and the float's own arithmetic, as the filter
+        scale = ftype.type(10.0 ** factor)
+        out = ints.astype(ftype) / scale + low
+        if fill_defined:
+            is_fill = ints == np.array([fill_code], np.uint64).astype(
+                f"<u{size}").view(itype)[0]
+    out = out.astype(dt.disk.newbyteorder("<"))
+    if fill_defined:
+        out[is_fill] = fill
+    return out.tobytes()
 
 
 def _unshuffle(raw: bytes, typesize: int) -> bytes:

@@ -4,19 +4,21 @@ Re-specification of the reference's storage layer
 (cluster_tools/utils/volume_utils.py:33-43 `file_reader` dispatching to
 z5py/h5py; datasets are numpy-sliceable, support `require_dataset`,
 per-chunk reads/writes and parallel IO).  The chunk engine is written here
-with numpy, the standard library (``zlib`` / ``gzip``) and the package's
-own blosc codecs (``core/blosc.py``), so the package needs no storage
-library.  It reads and writes the on-disk formats that tensorstore writes:
+with numpy, the standard library (``zlib`` / ``gzip`` / ``bz2`` /
+``lzma``) and the package's own codecs (``core/blosc.py``,
+``core/codecs.py``), so the package needs no storage library.  It reads
+and writes the on-disk formats that tensorstore writes:
 
 * N5: ``attributes.json`` metadata in column-major axis order; each chunk
   is a big-endian header (mode, ndim, chunk dims, column-major) followed by
-  the big-endian elements, ``raw``, ``gzip`` or (read only) ``blosc``
-  compressed.  Edge chunks are written at the full block size
-  (tensorstore's convention) and read at whatever size their header states
-  (z5/n5-java truncate them).  ``compression="blosc"`` creates raw chunks,
+  the big-endian elements, ``raw``, ``gzip`` or (read only) ``bzip2``,
+  ``xz``, ``zstd`` or ``blosc`` compressed.  Edge chunks are written at
+  the full block size (tensorstore's convention) and read at whatever
+  size their header states (z5/n5-java truncate them).  ``compression="blosc"`` creates raw chunks,
   as the JAX package does.
-* zarr v2: ``.zarray`` metadata, C order, ``null``, ``zlib`` or ``blosc``
-  compressor, full-size edge chunks.
+* zarr v2: ``.zarray`` metadata, C order (F order read only), ``null``,
+  ``zlib`` or ``blosc`` compressor (``bz2`` and ``zstd`` read only),
+  full-size edge chunks.  ``filters`` raise by name.
 
 HDF5 files (``.h5``/``.hdf``/``.hdf5``) go through the package's own
 reader and writer (``core/hdf5.py``), Knossos pyramids (read only) through
@@ -36,8 +38,10 @@ The store doubles as the inter-task data plane exactly as in the reference
 
 from __future__ import annotations
 
+import bz2
 import gzip
 import json
+import lzma
 import os
 import struct
 import threading
@@ -47,7 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import blosc, hdf5
+from . import blosc, codecs, hdf5
 from .config import write_config
 
 _N5_DTYPES = ("uint8", "uint16", "uint32", "uint64", "int8", "int16",
@@ -128,12 +132,16 @@ def _atomic_write(path: str, payload: bytes) -> None:
 
 class _N5Codec:
     """N5 chunk format: big-endian header + big-endian C-order elements
-    (C order over the numpy axes is column-major over N5's axes)."""
+    (C order over the numpy axes is column-major over N5's axes).  Reads
+    ``raw``, ``gzip``, ``bzip2``, ``xz``, ``zstd`` and ``blosc`` chunks;
+    writes ``raw`` and ``gzip``."""
+
+    _READ = ("raw", "gzip", "bzip2", "xz", "zstd", "blosc")
 
     def __init__(self, meta: Dict[str, Any]):
         comp = meta.get("compression", {"type": "raw"})
         self.kind = comp.get("type", "raw")
-        if self.kind not in ("raw", "gzip", "blosc"):
+        if self.kind not in self._READ:
             raise NotImplementedError(
                 f"N5 compression {self.kind!r} is not supported")
         self.use_zlib = bool(comp.get("useZlib", False))
@@ -149,20 +157,28 @@ class _N5Codec:
             raise NotImplementedError(f"N5 chunk mode {mode} (varlength)")
         dims = struct.unpack(f">{ndim}I", raw[4:4 + 4 * ndim])
         body = raw[4 + 4 * ndim:]
+        n = int(np.prod(dims))
         if self.kind == "gzip":
             body = zlib.decompress(body) if self.use_zlib else \
                 gzip.decompress(body)
+        elif self.kind == "bzip2":
+            body = bz2.decompress(body)
+        elif self.kind == "xz":
+            body = lzma.decompress(body)
+        elif self.kind == "zstd":
+            body = codecs.zstd_decompress(body, n * self.be.itemsize)
         elif self.kind == "blosc":
             body = blosc.decompress(body)
-        arr = np.frombuffer(body, self.be, count=int(np.prod(dims)))
+        arr = np.frombuffer(body, self.be, count=n)
         return arr.reshape(dims[::-1]).astype(self.dtype)
 
     def encode(self, arr: np.ndarray) -> bytes:
         head = struct.pack(f">HH{arr.ndim}I", 0, arr.ndim, *arr.shape[::-1])
         body = np.ascontiguousarray(arr, dtype=self.be).tobytes()
-        if self.kind == "blosc":
-            raise NotImplementedError("writing N5 blosc chunks is not "
-                                      "supported (creation writes raw)")
+        if self.kind not in ("raw", "gzip"):
+            raise NotImplementedError(
+                f"writing N5 {self.kind} chunks is not supported (creation "
+                "writes raw or gzip)")
         if self.kind == "gzip":
             body = zlib.compress(body, self.level) if self.use_zlib else \
                 gzip.compress(body, compresslevel=self.level, mtime=0)
@@ -170,17 +186,22 @@ class _N5Codec:
 
 
 class _ZarrCodec:
-    """zarr v2 chunk format: C-order elements in the metadata's byte order,
-    ``null``, ``zlib``/``gzip`` or ``blosc`` compressed."""
+    """zarr v2 chunk format: the elements in the metadata's byte order and
+    C or F order (returned C-contiguous), ``null``, ``zlib``/``gzip``,
+    ``bz2``, ``zstd`` or ``blosc`` compressed.  Writes C order, ``null``,
+    ``zlib``/``gzip`` and ``blosc``."""
+
+    _READ = (None, "zlib", "gzip", "bz2", "zstd", "blosc")
 
     def __init__(self, meta: Dict[str, Any]):
-        if meta.get("order", "C") != "C":
-            raise NotImplementedError("zarr F-order chunks are not supported")
+        self.order = meta.get("order", "C")
+        if self.order not in ("C", "F"):
+            raise NotImplementedError(f"zarr order {self.order!r}")
         if meta.get("filters"):
             raise NotImplementedError("zarr filters are not supported")
         comp = meta.get("compressor")
         self.kind = None if comp is None else comp.get("id")
-        if self.kind not in (None, "zlib", "gzip", "blosc"):
+        if self.kind not in self._READ:
             raise NotImplementedError(
                 f"zarr compressor {self.kind!r} is not supported")
         self.level = int((comp or {}).get("level", 1))
@@ -194,12 +215,22 @@ class _ZarrCodec:
             raw = zlib.decompress(raw)
         elif self.kind == "gzip":
             raw = gzip.decompress(raw)
+        elif self.kind == "bz2":
+            raw = bz2.decompress(raw)
+        elif self.kind == "zstd":
+            raw = codecs.zstd_decompress(
+                raw, int(np.prod(self.chunks)) * self.disk.itemsize)
         elif self.kind == "blosc":
             raw = blosc.decompress(raw)
-        arr = np.frombuffer(raw, self.disk).reshape(self.chunks)
-        return arr.astype(self.dtype)
+        arr = np.frombuffer(raw, self.disk).reshape(self.chunks,
+                                                    order=self.order)
+        return np.ascontiguousarray(arr, dtype=self.dtype)
 
     def encode(self, arr: np.ndarray) -> bytes:
+        if self.order != "C" or self.kind in ("bz2", "zstd"):
+            raise NotImplementedError(
+                f"writing zarr {self.order}-order {self.kind} chunks is not "
+                "supported (creation writes C order, zlib or blosc)")
         body = np.ascontiguousarray(arr, dtype=self.disk).tobytes()
         if self.kind == "zlib":
             return zlib.compress(body, self.level)

@@ -4,8 +4,9 @@ Replaces the reference's external pybind11 wheels for combinatorial work
 (nifty solvers/ufd — SURVEY §2.3) and the blosc library's codecs.  Two
 shared libraries are compiled with g++ the first time a process needs
 them (the C API is flat arrays; see ``core/build.py``): the solvers from
-``src/solvers.cpp`` and the blosc streams' codecs (LZ4, BloscLZ, byte
-shuffle; framed by ``core/blosc.py``) from ``src/codecs.cpp``.  Without a
+``src/solvers.cpp`` and the chunk formats' codecs (LZ4, BloscLZ,
+Zstandard, Snappy, LZF, the byte shuffle and bitshuffle, HDF5's lookup3
+checksum; wrapped by ``core/codecs.py``) from ``src/codecs.cpp``.  Without a
 compiler they raise: the package has no slower stand-in for them.
 """
 
@@ -96,7 +97,9 @@ def codecs() -> ctypes.CDLL:
         lib = ctypes.CDLL(build_shared("ctt_torch_codecs", [_CODECS_SRC],
                                        _CMD))
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        for name in ("lz4_compress", "lz4_decompress", "blosclz_decompress"):
+        for name in ("lz4_compress", "lz4_decompress", "blosclz_decompress",
+                     "zstd_decompress", "snappy_decompress",
+                     "lzf_decompress"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, i64, ptr, i64]
             fn.restype = i64
@@ -106,6 +109,10 @@ def codecs() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ptr, i64, i64, ptr]
             fn.restype = None
+        lib.bitunshuffle.argtypes = [ptr, i64, i64, i64, ptr]
+        lib.bitunshuffle.restype = None
+        lib.lookup3.argtypes = [ptr, i64, ctypes.c_uint32]
+        lib.lookup3.restype = ctypes.c_uint32
         _codecs = lib
         return _codecs
 

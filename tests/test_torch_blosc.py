@@ -8,7 +8,10 @@ against tensorstore's c-blosc, on the CPU.  Exact.
 * the JAX package's ``ZarrFile(compression="blosc")`` read by the port,
   and the port's blosc zarr read by the JAX package;
 * n5-blosc datasets (as tensorstore and z5py write them) read by the port;
-* Zstd and bitshuffle raise naming themselves;
+* Zstd, Snappy and the bitshuffle (type sizes 1, 2, 4 and 8, element
+  counts that are not a multiple of 8) as tensorstore writes them; a
+  dictionary-named Zstd stream and an unknown codec raise naming
+  themselves;
 * a hypothesis round trip of the frame over bytes, type sizes and
   shuffles.
 """
@@ -55,6 +58,20 @@ def _ts_zarr(path, data, compressor):
 @pytest.mark.parametrize("cname,shuffle,dtype", list(itertools.product(
     ["lz4", "lz4hc", "blosclz", "zlib"], [0, 1], DTYPES)))
 def test_port_decodes_tensorstore_chunks(tmp_path, cname, shuffle, dtype):
+    _decodes_tensorstore_chunks(tmp_path, cname, shuffle, dtype)
+
+
+@pytest.mark.parametrize("cname,shuffle,dtype", [
+    *itertools.product(["zstd", "snappy"], [0, 1, 2], DTYPES),
+    *itertools.product(["lz4", "blosclz", "zlib"], [2], DTYPES)])
+def test_port_decodes_zstd_snappy_and_bitshuffle_chunks(tmp_path, cname,
+                                                        shuffle, dtype):
+    """Zstd (one frame per stream) and Snappy streams, and the bitshuffle
+    under every codec, each split or not as c-blosc chose."""
+    _decodes_tensorstore_chunks(tmp_path, cname, shuffle, dtype)
+
+
+def _decodes_tensorstore_chunks(tmp_path, cname, shuffle, dtype):
     for kind in ("smooth", "random"):
         data = _data(dtype, kind)
         path = str(tmp_path / kind)
@@ -66,7 +83,7 @@ def test_port_decodes_tensorstore_chunks(tmp_path, cname, shuffle, dtype):
             with open(os.path.join(path, name), "rb") as f:
                 frame = f.read()
             flags = blosc.header(frame)[0]
-            assert bool(flags & 1) == bool(shuffle) or flags & 2
+            assert flags & 5 == {0: 0, 1: 1, 2: 4}[shuffle] or flags & 2
             pos = [int(p) for p in name.split(".")]
             bb = tuple(slice(p * c, min((p + 1) * c, s))
                        for p, c, s in zip(pos, CHUNKS, SHAPE))
@@ -160,6 +177,10 @@ def test_n5_blosc_read(tmp_path, dtype, cname):
 
 @pytest.mark.parametrize("what", ["zstd", "bitshuffle"])
 def test_zstd_and_bitshuffle_raise_by_name(tmp_path, what):
+    """Zstd and the bitshuffle used to raise by name; they now read
+    exactly as tensorstore wrote them.  What still raises by name in
+    their place: a Zstd stream whose frame names a dictionary, and a
+    codec id past Zstd's."""
     data = _data("uint16", "smooth")
     comp = ({"id": "blosc", "cname": "zstd", "clevel": 5, "shuffle": 1}
             if what == "zstd" else
@@ -168,11 +189,97 @@ def test_zstd_and_bitshuffle_raise_by_name(tmp_path, what):
     _ts_zarr(path, data, comp)
     with open(os.path.join(path, "0.0.0"), "rb") as f:
         frame = f.read()
-    with pytest.raises(NotImplementedError, match=what):
-        blosc.decompress(frame)
-    with _zarr_dir(path) as ds, pytest.raises(NotImplementedError,
-                                              match=what):
-        ds[...]
+    plain = blosc.decompress(frame).view("uint16").reshape(CHUNKS)
+    np.testing.assert_array_equal(plain, data[:8, :32, :16])
+    with _zarr_dir(path) as ds:
+        np.testing.assert_array_equal(ds[...], data)
+    head = bytearray(frame[:blosc.HEADER])
+    if what == "zstd":
+        import zstandard
+
+        d = zstandard.train_dictionary(1024, [bytes([i % 7]) * 300 + b"x" * i
+                                              for i in range(300)])
+        block = b"\x05" * 4096
+        stream = zstandard.ZstdCompressor(dict_data=d).compress(block)
+        head[2] = (4 << 5) | 0x10  # Zstd, not split, no shuffle
+        head[3] = 1
+        head[4:16] = np.array([4096, 4096, 16 + 4 + 4 + len(stream)],
+                              "<u4").tobytes()
+        broken = bytes(head) + (20).to_bytes(4, "little") + len(
+            stream).to_bytes(4, "little") + stream
+        match = "dictionar"
+    else:
+        head[2] = (5 << 5) | (head[2] & 0x1F)
+        broken = bytes(head) + frame[blosc.HEADER:]
+        match = "codec 5"
+    with pytest.raises(NotImplementedError, match=match):
+        blosc.decompress(broken)
+
+
+@pytest.mark.parametrize("typesize", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [64, 77, 8, 5])
+def test_bitshuffle_type_sizes(tmp_path, typesize, n):
+    """tensorstore's bitshuffled chunks of ``n`` elements of each type
+    size (77 and 5: not a multiple of 8, stored unshuffled by c-blosc
+    1.x, whose frames are of version 2)."""
+    dtype = {1: "uint8", 2: "uint16", 4: "float32", 8: "uint64"}[typesize]
+    rng = np.random.RandomState(n * typesize)
+    data = (rng.randint(0, 200, (3, n)) // 3).astype(dtype)
+    path = str(tmp_path / "d")
+    t = ts.open({"driver": "zarr", "kvstore": {"driver": "file",
+                                               "path": path},
+                 "metadata": {"shape": [3, n], "chunks": [2, n],
+                              "dtype": data.dtype.str,
+                              "compressor": {"id": "blosc", "cname": "lz4",
+                                             "clevel": 5, "shuffle": 2}},
+                 "create": True}).result()
+    t[...] = data
+    with _zarr_dir(path) as ds:
+        np.testing.assert_array_equal(ds[...], data)
+
+
+def test_bitunshuffle_inverts_bitshuffle():
+    """The C++ bitunshuffle against a numpy transcription of c-blosc's
+    bitshuffle (byte planes, then each byte's bits in 8 rows), for
+    version 3 frames too, where the elements past the last full group of
+    8 are left as they lie."""
+    from cluster_tools_tpu_torch.native import codecs
+
+    rng = np.random.RandomState(0)
+    lib = codecs()
+    for typesize in (1, 2, 3, 4, 8):
+        for n in (0, 8, 16, 24, 13, 200, 203):
+            # and a partial element at the end
+            raw = rng.randint(0, 256, n * typesize + typesize - 1).astype(
+                np.uint8)
+            size = n - n % 8
+            body = raw[:size * typesize].reshape(size, typesize)
+            # bit k of byte j of element i -> row (j, k), column i
+            bits = np.unpackbits(body[:, :, None], axis=2,
+                                 bitorder="little")  # (i, j, k)
+            rows = bits.transpose(1, 2, 0).reshape(typesize * 8, size)
+            shuffled = np.packbits(rows, axis=1, bitorder="little")
+            stored = np.concatenate([shuffled.reshape(-1),
+                                     raw[size * typesize:]])
+            out = np.empty_like(raw)
+            lib.bitunshuffle(stored.ctypes.data, len(raw), typesize, 3,
+                             out.ctypes.data)
+            np.testing.assert_array_equal(out, raw)
+            if n % 8:  # version 2: such a block was stored as it lay
+                lib.bitunshuffle(raw.ctypes.data, len(raw), typesize, 2,
+                                 out.ctypes.data)
+                np.testing.assert_array_equal(out, raw)
+
+
+def test_corrupt_snappy_and_zstd_streams_raise():
+    from cluster_tools_tpu_torch.core import codecs
+
+    with pytest.raises(ValueError):
+        codecs.snappy_decompress(b"\x0a\x08abc", 10)  # literal past end
+    with pytest.raises(ValueError):
+        codecs.snappy_decompress(b"\x04\x00a\x05\x09", 4)  # offset 9
+    with pytest.raises(ValueError):
+        codecs.zstd_decompress(b"\x28\xb5\x2f\xfd\x00", 10)
 
 
 def test_corrupt_frames_raise():

@@ -591,3 +591,73 @@ def test_training_modules_are_held_to_the_rule():
         assert callable(getattr(ppar, name)), name
     missing = [n for n in jax_names if not hasattr(ppar, n)]
     assert not missing, missing
+
+
+FIXTURE_GENERATOR = os.path.join(ROOT, "tests", "data", "torch_formats",
+                                 "make_fixtures.py")
+
+
+def _imports(path):
+    """(module-level, anywhere) top-level names of a file's imports."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    top, anywhere = set(), set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        anywhere.update(n.split(".")[0] for n in names)
+        if node in tree.body:
+            top.update(n.split(".")[0] for n in names)
+    return top, anywhere
+
+
+def test_formats_modules_are_held_to_the_rule():
+    """The codecs and the ``libver="latest"`` HDF5 structures are among
+    the modules the import checks walk, and no source of the port (or a
+    script for the card) imports a compression or HDF5 library: the
+    Zstandard, Snappy, LZF and bitshuffle decoders and the lookup3
+    checksum are the port's own."""
+    mods = set(_port_modules())
+    for name in ("core.codecs", "core.hdf5_v2", "core.blosc", "core.hdf5",
+                 "native"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+    libs = {"zstandard", "zstd", "pyzstd", "snappy", "blosc", "blosc2",
+            "numcodecs", "lz4", "lzf", "hdf5plugin", "h5py", "tensorstore",
+            "bitshuffle", "zarr"}
+    bad = [(os.path.relpath(p, ROOT), sorted(_imports(p)[1] & libs))
+           for p in _sources() if _imports(p)[1] & libs]
+    assert not bad, bad
+
+
+def test_fixture_generator_is_numpy_only():
+    """``make_fixtures.py``'s arrays are regenerated on the card's
+    machine (``chip_smoke.py`` phase 16e): at module level it imports the
+    standard library and numpy only, nothing of JAX or the JAX package
+    anywhere, and tensorstore and h5py only inside its writers."""
+    top, anywhere = _imports(FIXTURE_GENERATOR)
+    assert top <= {"__future__", "json", "os", "shutil", "typing",
+                   "numpy"}, top
+    assert not anywhere & {"jax", "jaxlib", "cluster_tools_tpu", "flax",
+                           "torch"}, anywhere
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('make_fixtures', "
+        f"{FIXTURE_GENERATOR!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "for name in mod.ARRAYS:\n"
+        "    mod.expected(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'cluster_tools_tpu', 'h5py', 'tensorstore', "
+        "'torch'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok", res.stdout
