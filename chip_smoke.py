@@ -197,7 +197,15 @@ sources, then runs eighteen phases, each of which must pass:
    saved and restored bitwise, the next loss equal; (d)
    ``pipeline_apply``, ``moe_apply`` (two capacities) and
    ``ring_attention`` (float32 and bfloat16, causal and not) over 4 shards,
-   each against its dense version on the card and timed beside it.
+   each against its dense version on the card and timed beside it; (e)
+   the JAX package's own orbax train states (``tests/data/
+   torch_train_states/``: its ``save_train_state`` after one JAX step,
+   unsharded and from its 8-device mesh) restored without orbax onto the
+   card, whole and onto 8 shards ``(2, 2, 2)``, bitwise equal to the
+   restore onto the CPU, then one step from each: the float32 loss within
+   1e-5 (18a's gate of the card against the CPU) of the JAX package's
+   float32 loss, the bfloat16 loss within 2e-2 of the JAX package's own
+   (bfloat16) loss, both as the fixture records them.
 
 The last stdout line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -4455,6 +4463,10 @@ SHARD_LOSS_RTOL = 1e-5
 SHARD_BF16_RTOL = 2e-2
 #: the loss of the step after a restore
 RESTORE_RTOL = 1e-6
+#: 18e: the JAX package's orbax train states (its float32 losses held to
+#: SHARD_LOSS_RTOL, 18a's gate of the card against the CPU; its
+#: bfloat16 losses to SHARD_BF16_RTOL)
+TRAIN_STATES_DIR = os.path.join("tests", "data", "torch_train_states")
 #: 18d: the primitives on 4 shards
 P18_SHARDS = 4
 PIPE_D, PIPE_MICRO, PIPE_ROWS = 1024, 16, 512
@@ -4872,7 +4884,94 @@ def primitives_card():
     return recs
 
 
-def training_paths(root: str, gt: np.ndarray):
+def orbax_restore_path(repo: str, device: str = "cuda"):
+    """Phase 18e: each fixture of TRAIN_STATES_DIR (the JAX package's
+    orbax ``save_train_state`` after one JAX step, unsharded and from its
+    8-device mesh) restored by the port's ``restore_train_state`` onto
+    ``device``, whole and onto 18a's (2, 2, 2) mesh of 8 shards, every
+    tensor on ``device`` and bitwise equal to the restore onto the CPU;
+    one step from each restored state on the batch the fixture records:
+    the float32 loss within SHARD_LOSS_RTOL of the JAX package's float32
+    loss, the bfloat16 loss within SHARD_BF16_RTOL of the JAX package's
+    own.  Expected under 10 s on the card."""
+    import torch
+
+    from cluster_tools_tpu_torch.models import train as T
+    from cluster_tools_tpu_torch.models.checkpoint import \
+        restore_train_state
+    from cluster_tools_tpu_torch.models.unet import create_unet
+    from cluster_tools_tpu_torch.parallel import mesh as pm
+
+    recs = []
+    for name in ("unsharded", "sharded"):
+        path = os.path.join(repo, TRAIN_STATES_DIR, name)
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        b, d, h, w = meta["batch"]["shape"]
+        x = np.random.RandomState(meta["batch"]["x_seed"]).rand(
+            b, d, h, w, 1).astype("float32")
+        y = (np.random.RandomState(meta["batch"]["y_seed"]).rand(
+            b, d, h, w, 3) > 0.5).astype("float32")
+        x = torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, 1)))
+        y = torch.from_numpy(np.ascontiguousarray(np.moveaxis(y, -1, 1)))
+        cpu = None
+        for layout in ("whole", "mesh8"):
+            for dtype, key, rtol in (
+                    (torch.float32, "next_loss_float32", SHARD_LOSS_RTOL),
+                    (torch.bfloat16, "next_loss", SHARD_BF16_RTOL)):
+                model = create_unet(**meta["model"], dtype=dtype)
+                abstract = T.init_state(model, (1, 1, d, h, w),
+                                        device=device)
+                if layout == "mesh8":
+                    _, abstract, pl = T.shard_train_step(
+                        model, abstract, _mesh8(device))
+                t0 = time.perf_counter()
+                state = restore_train_state(path, abstract)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                whole = T.unplace_state(state, torch.device("cpu"))
+                if cpu is None:
+                    cpu = restore_train_state(path, T.init_state(
+                        model, (1, 1, d, h, w), device="cpu"))
+                tensors = [t for tree in (state.params, state.opt_state.mu,
+                                          state.opt_state.nu)
+                           for v in tree.values()
+                           for t in (v if state.sharded else [v])]
+                on_device = all(t.device.type == device for t in tensors)
+                same = all(torch.equal(a[k].cpu(), b_[k]) for a, b_ in (
+                    (whole.params, cpu.params),
+                    (whole.opt_state.mu, cpu.opt_state.mu),
+                    (whole.opt_state.nu, cpu.opt_state.nu)) for k in b_)
+                t0 = time.perf_counter()
+                if layout == "mesh8":
+                    s2, loss = T.make_sharded_step(model)(
+                        state, pm.shard(x.to(device), state.mesh, pl),
+                        pm.shard(y.to(device), state.mesh, pl))
+                else:
+                    s2, loss = T.make_train_step(model)(
+                        state, x.to(device), y.to(device))
+                loss = float(loss)
+                step_s = time.perf_counter() - t0
+                rec = {"fixture": name, "layout": layout,
+                       "dtype": str(dtype).split(".")[-1],
+                       "shards": len(tensors) // (3 * len(state.params)),
+                       "on_device": on_device, "equal_to_cpu_restore": same,
+                       "step": s2.step, "count": s2.opt_state.count,
+                       "loss": loss, "jax_loss": meta[key],
+                       "rel_err": abs(loss / meta[key] - 1), "rtol": rtol,
+                       "restore_s": restore_s, "step_s": step_s}
+                log(f"orbax-restore {json.dumps(rec)}")
+                if not (on_device and same and s2.step == 2 and
+                        s2.opt_state.count == 2 and np.isfinite(loss)) \
+                        or rec["rel_err"] > rtol:
+                    raise AssertionError(f"18e: the JAX package's train "
+                                         f"state {name}: {rec}")
+                recs.append(rec)
+    return recs
+
+
+def training_paths(root: str, gt: np.ndarray, repo: str):
     """Phase 18: training and the parallel primitives on the card (no
     kernel of the port lies on them)."""
     log(f"phase 18: training ({P18_MESH} shards on 1 card for the "
@@ -4882,6 +4981,7 @@ def training_paths(root: str, gt: np.ndarray):
     _phase("18c", train_state_round_trip, root, run)
     del run
     _phase("18d", primitives_card)
+    _phase("18e", orbax_restore_path, repo)
 
 
 def _phase(name, fn, *args):
@@ -5031,7 +5131,7 @@ def main() -> int:
         # phase 18: training and the parallel primitives lie on no kernel
         # of the port
         kernels.reset_counts()
-        training_paths(root, gt)
+        training_paths(root, gt, repo)
         if kernels.counts()["minplus"] != 0:
             raise AssertionError("phase 18 launched the min-plus kernel")
     finally:

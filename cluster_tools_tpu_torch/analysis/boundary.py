@@ -1,14 +1,14 @@
 """port-boundary: what the port may import.
 
-The port runs on a machine with PyTorch and no JAX, no h5py, tensorstore
-or numcodecs (its storage formats are its own: ``core/hdf5.py``,
-``core/blosc.py``), and no sklearn or imageio.  So:
+The port runs on a machine with PyTorch and no JAX, no h5py, tensorstore,
+orbax or numcodecs (its storage formats are its own: ``core/hdf5.py``,
+``core/blosc.py``, ``core/ocdbt.py``), and no sklearn or imageio.  So:
 
-* an import of ``jax``, ``jaxlib``, ``flax``, ``optax``, the JAX package
-  (``cluster_tools_tpu``), ``h5py``, ``tensorstore`` or ``numcodecs``
-  anywhere — at module level or inside a function, by ``import``,
-  ``from ... import`` or ``importlib.import_module("...")`` — is a
-  finding;
+* an import of ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax``,
+  ``ml_dtypes``, the JAX package (``cluster_tools_tpu``), ``h5py``,
+  ``tensorstore``, ``numcodecs`` or ``zstandard`` anywhere — at module
+  level or inside a function, by ``import``, ``from ... import`` or
+  ``importlib.import_module("...")`` — is a finding;
 * ``sklearn`` and ``imageio`` may be imported only inside the function
   that needs them (a host without them still imports every module); at
   module level they are a finding.
@@ -21,8 +21,9 @@ from typing import Iterator, List, Optional, Tuple
 
 from .base import Finding, Pass, SourceFile, dotted_name
 
-FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "optax", "cluster_tools_tpu",
-                       "h5py", "tensorstore", "numcodecs"})
+FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "optax", "orbax",
+                       "ml_dtypes", "cluster_tools_tpu", "h5py",
+                       "tensorstore", "numcodecs", "zstandard"})
 FUNCTION_ONLY = frozenset({"sklearn", "imageio"})
 
 

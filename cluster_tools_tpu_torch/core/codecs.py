@@ -12,7 +12,8 @@ that size:
   (tensorstore and numcodecs write none);
 * Snappy's raw format (blosc's codec 2);
 * liblzf's format (h5py's LZF filter, HDF5 filter 32000);
-* Jenkins' lookup3, the checksum of HDF5's metadata.
+* Jenkins' lookup3, the checksum of HDF5's metadata, and CRC-32C, the
+  checksum of tensorstore's OCDBT files (``core/ocdbt.py``).
 
 (c-blosc's bitunshuffle runs in ``core/blosc.py`` on each block.)
 
@@ -42,19 +43,40 @@ def _sized(n: int, nbytes: int, what: str) -> None:
         raise ValueError(f"{what} holds {n} bytes, expected {nbytes}")
 
 
-def zstd_decompress(data, nbytes: int) -> np.ndarray:
-    """The ``nbytes`` plain bytes of the Zstandard frame(s) ``data``."""
-    src = as_u8(data)
-    out = np.empty(nbytes, np.uint8)
-    n = _codecs().zstd_decompress(src.ctypes.data, len(src),
-                                  out.ctypes.data, nbytes)
+def _zstd_into(src: np.ndarray, cap: int):
+    """(output buffer, the C++ decoder's return code)."""
+    out = np.empty(cap, np.uint8)
+    return out, int(_codecs().zstd_decompress(src.ctypes.data, len(src),
+                                              out.ctypes.data, cap))
+
+
+def _zstd_check(n: int) -> None:
     if n == -2:
         raise NotImplementedError("zstd frame with a dictionary ID "
                                   "(dictionaries are not supported)")
     if n < 0:
-        raise ValueError(f"zstd frame: {_ZSTD_ERRORS[int(n)]}")
+        raise ValueError(f"zstd frame: {_ZSTD_ERRORS[n]}")
+
+
+def zstd_decompress(data, nbytes: int) -> np.ndarray:
+    """The ``nbytes`` plain bytes of the Zstandard frame(s) ``data``."""
+    out, n = _zstd_into(as_u8(data), nbytes)
+    _zstd_check(n)
     _sized(n, nbytes, "zstd frame")
     return out
+
+
+def zstd_decompress_unsized(data, limit: int) -> np.ndarray:
+    """The plain bytes of the Zstandard frame(s) ``data`` whose size the
+    frame header need not state (riegeli's writer, which tensorstore's
+    OCDBT files use, leaves it out), decoded into a buffer of ``limit``
+    bytes (committed only as far as it is written); more raises
+    ``ValueError``."""
+    out, n = _zstd_into(as_u8(data), int(limit))
+    if n == -4:
+        raise ValueError(f"zstd frame holds more than {limit} bytes")
+    _zstd_check(n)
+    return out[:n]
 
 
 def snappy_decompress(data, nbytes: int) -> np.ndarray:
@@ -93,3 +115,9 @@ def lookup3(data, initval: int = 0) -> int:
     src = as_u8(data)
     return int(_codecs().lookup3(src.ctypes.data, len(src), initval))
 
+
+def crc32c(data) -> int:
+    """CRC-32C (Castagnoli) of ``data``: the checksum that closes each
+    manifest and node of tensorstore's OCDBT format."""
+    src = as_u8(data)
+    return int(_codecs().crc32c(src.ctypes.data, len(src), 0))

@@ -18,7 +18,10 @@ and writes the on-disk formats that tensorstore writes:
   as the JAX package does.
 * zarr v2: ``.zarray`` metadata, C order (F order read only), ``null``,
   ``zlib`` or ``blosc`` compressor (``bz2`` and ``zstd`` read only),
-  full-size edge chunks.  ``filters`` raise by name.
+  full-size edge chunks.  ``filters`` raise by name.  tensorstore's
+  ``"bfloat16"`` reads as uint16 bits.  :func:`open_zarr_array` reads an
+  array through a key-value store: a directory, or the OCDBT store of an
+  orbax checkpoint (``core/ocdbt.py``).
 
 HDF5 files (``.h5``/``.hdf``/``.hdf5``) go through the package's own
 reader and writer (``core/hdf5.py``), Knossos pyramids (read only) through
@@ -189,7 +192,9 @@ class _ZarrCodec:
     """zarr v2 chunk format: the elements in the metadata's byte order and
     C or F order (returned C-contiguous), ``null``, ``zlib``/``gzip``,
     ``bz2``, ``zstd`` or ``blosc`` compressed.  Writes C order, ``null``,
-    ``zlib``/``gzip`` and ``blosc``."""
+    ``zlib``/``gzip`` and ``blosc``.  tensorstore's dtype ``"bfloat16"``
+    (which numpy does not know) reads as the elements' little-endian
+    uint16 bits (``bfloat16`` is then true)."""
 
     _READ = (None, "zlib", "gzip", "bz2", "zstd", "blosc")
 
@@ -206,7 +211,8 @@ class _ZarrCodec:
                 f"zarr compressor {self.kind!r} is not supported")
         self.level = int((comp or {}).get("level", 1))
         self.blosc = comp if self.kind == "blosc" else None
-        self.disk = np.dtype(meta["dtype"])
+        self.bfloat16 = meta["dtype"] == "bfloat16"
+        self.disk = np.dtype("<u2" if self.bfloat16 else meta["dtype"])
         self.dtype = self.disk.newbyteorder("=")
         self.chunks = tuple(meta["chunks"])
 
@@ -224,7 +230,9 @@ class _ZarrCodec:
             raw = blosc.decompress(raw)
         arr = np.frombuffer(raw, self.disk).reshape(self.chunks,
                                                     order=self.order)
-        return np.ascontiguousarray(arr, dtype=self.dtype)
+        # (ascontiguousarray makes a 0-d array 1-d)
+        return np.ascontiguousarray(arr, dtype=self.dtype).reshape(
+            arr.shape)
 
     def encode(self, arr: np.ndarray) -> bytes:
         if self.order != "C" or self.kind in ("bz2", "zstd"):
@@ -290,15 +298,48 @@ def _normalize_index(bb, shape) -> Tuple[Tuple[slice, ...], List[int]]:
     return tuple(out), squeeze
 
 
+class DirectoryKV:
+    """A directory as a key-value store: a key is a ``/``-separated path
+    under it.  A chunked array reads its chunks through this interface
+    (``get`` and ``has``), which ``core/ocdbt.py``'s store offers too.
+    A key that would leave the directory raises ``OSError``, as a data
+    file path of an OCDBT store does."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def file(self, key: str) -> str:
+        parts = key.split("/")
+        if key.startswith("/") or ".." in parts or "\0" in key:
+            raise OSError(f"{self.path}: key {key!r} leaves the directory")
+        return os.path.join(self.path, *parts)
+
+    def get(self, key: str) -> Optional[bytes]:
+        try:
+            with open(self.file(key), "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return None
+
+    def has(self, key: str) -> bool:
+        return os.path.exists(self.file(key))
+
+
 class Dataset:
     """A chunked N5/zarr array with numpy-style slicing (C-order axes).
 
+    Its chunks are files under ``path``; or, read only, the keys under
+    ``prefix`` of a key-value store ``kv`` (:func:`open_zarr_array`).
     ``n_threads`` is accepted for reference API compatibility (z5's
     ds.n_threads, multicut/solve_subproblems.py:241) and ignored."""
 
-    def __init__(self, path: str, flavor: str, meta: Dict[str, Any]):
+    def __init__(self, path: str, flavor: str, meta: Dict[str, Any],
+                 kv=None, prefix: str = ""):
         self.path = path
         self.flavor = flavor
+        self._kv = DirectoryKV(path) if kv is None else kv
+        self._prefix = prefix
+        self._writable = kv is None
         self.attrs = AttrsView(path, flavor, is_dataset=True)
         self.n_threads = 1
         if flavor == "n5":
@@ -311,6 +352,10 @@ class Dataset:
             self._codec = _ZarrCodec(meta)
             self._sep = meta.get("dimension_separator", ".")
             self._fill = meta.get("fill_value") or 0
+            if self._codec.bfloat16 and self._fill:
+                raise NotImplementedError(
+                    f"{path}: bfloat16 fill value {self._fill!r} (null "
+                    "and 0 are read)")
         self._dtype = self._codec.dtype
 
     @property
@@ -333,14 +378,25 @@ class Dataset:
     def chunks(self) -> Tuple[int, ...]:
         return self._chunks
 
+    @property
+    def bfloat16(self) -> bool:
+        """True for a zarr array of tensorstore's ``"bfloat16"``: the
+        elements read as their uint16 bits (``dtype`` is uint16); view
+        them as ``torch.bfloat16``."""
+        return self.flavor == "zarr" and self._codec.bfloat16
+
     # -- chunk files -----------------------------------------------------
-    def _chunk_file(self, chunk_id: Sequence[int]) -> str:
+    def _chunk_key(self, chunk_id: Sequence[int]) -> str:
         if self.flavor == "zarr":
-            name = self._sep.join(str(c) for c in chunk_id)
-            return os.path.join(self.path, *name.split("/"))
+            # a zero-dimensional array's one chunk is "0"
+            return self._prefix + (self._sep.join(str(c) for c in chunk_id)
+                                   or "0")
         # N5 chunk directories are column-major: reverse the chunk id
-        return os.path.join(self.path,
-                            *[str(c) for c in reversed(tuple(chunk_id))])
+        return self._prefix + "/".join(str(c)
+                                       for c in reversed(tuple(chunk_id)))
+
+    def _chunk_file(self, chunk_id: Sequence[int]) -> str:
+        return self._kv.file(self._chunk_key(chunk_id))
 
     def _chunk_bb(self, chunk_id: Sequence[int]) -> Tuple[slice, ...]:
         return tuple(slice(c * cs, min((c + 1) * cs, s))
@@ -348,12 +404,8 @@ class Dataset:
 
     def _load_chunk(self, chunk_id) -> Optional[np.ndarray]:
         """The chunk's elements at its stored size, or None if missing."""
-        try:
-            with open(self._chunk_file(chunk_id), "rb") as f:
-                raw = f.read()
-        except FileNotFoundError:
-            return None
-        return self._codec.decode(raw)
+        raw = self._kv.get(self._chunk_key(chunk_id))
+        return None if raw is None else self._codec.decode(raw)
 
     def _store_chunk(self, chunk_id, full: np.ndarray) -> None:
         path = self._chunk_file(chunk_id)
@@ -392,6 +444,9 @@ class Dataset:
         return out.squeeze(axis=tuple(squeeze)) if squeeze else out
 
     def __setitem__(self, bb, value) -> None:
+        if not self._writable:
+            raise NotImplementedError(f"{self.path}: an array read from a "
+                                      "key-value store is read only")
         sl, squeeze = _normalize_index(bb, self._shape)
         region = [s.stop - s.start for s in sl]
         arr = np.asarray(value)
@@ -425,7 +480,7 @@ class Dataset:
     def read_chunk(self, chunk_id: Sequence[int]) -> Optional[np.ndarray]:
         """None for chunks never written; a present all-zero chunk returns
         zeros (z5 semantics distinguish missing from zero)."""
-        if not os.path.exists(self._chunk_file(chunk_id)):
+        if not self._kv.has(self._chunk_key(chunk_id)):
             return None
         return self[self._chunk_bb(chunk_id)]
 
@@ -435,6 +490,17 @@ class Dataset:
 
     def find_max(self) -> float:
         return float(np.max(self[...]))
+
+
+def open_zarr_array(kv, key: str) -> Dataset:
+    """The zarr v2 array stored under ``key`` of the key-value store
+    ``kv`` (``.zarray`` and the chunks at ``<key>/<chunk>``; a
+    :class:`DirectoryKV` or ``core.ocdbt.OcdbtStore``), read only."""
+    raw = kv.get(f"{key}/.zarray")
+    if raw is None:
+        raise KeyError(f"no zarr array {key!r} in {kv.path}")
+    return Dataset(f"{kv.path}/{key}", "zarr", json.loads(raw), kv=kv,
+                   prefix=f"{key}/")
 
 
 # ---------------------------------------------------------------------------

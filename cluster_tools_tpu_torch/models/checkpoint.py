@@ -19,9 +19,8 @@ carry the parameters between flax's layout and the port's ``UNet3D``
   weight laid out ``(in, out, kd, kh, kw)``: the taps are flipped;
 * GroupNorm ``scale``/``bias`` are torch's ``weight``/``bias``.
 
-A training state (``models/train.py``) is a directory of its own, in
-the port's layout (the JAX package writes orbax, which the card's machine
-does not have):
+A training state (``models/train.py``) is written in the port's own
+layout:
 
     <path>/train_state.json — step, the optimizer's count and settings,
                               the model config, each tensor's placement
@@ -30,10 +29,15 @@ does not have):
                               moments under the flax names of params.npz
 
 A sharded state is joined on the host before the write; restore places
-each tensor back by its placement.  :func:`train_state_from_flax` and
-:func:`train_state_to_flax` carry a JAX ``TrainState`` (flax params plus
-optax's ``(ScaleByAdamState, EmptyState, EmptyState)``) across, moments
-with the kernels' transposes and flips.
+each tensor back by its placement.  :func:`restore_train_state` also
+reads the orbax directories that the JAX package's ``save_train_state``
+writes (``_CHECKPOINT_METADATA``, ``_METADATA`` and an OCDBT store:
+``models/orbax.py``), without orbax; the port does not write them, so
+the JAX package cannot resume a run of the port.
+:func:`train_state_from_flax` and :func:`train_state_to_flax` carry a
+JAX ``TrainState`` (flax params plus optax's ``(ScaleByAdamState,
+EmptyState, EmptyState)``) across, moments with the kernels' transposes
+and flips.
 """
 
 from __future__ import annotations
@@ -258,41 +262,84 @@ def save_train_state(path: str, state) -> None:
                        if state.sharded else None)})
 
 
-def restore_train_state(path: str, abstract_state):
-    """Restore a train state written by :func:`save_train_state` onto the
-    layout of ``abstract_state`` (a state of the same model): whole
-    tensors on its tensors' devices, or, for a sharded one, cut onto its
-    mesh by the saved placements."""
-    from ..parallel.mesh import Placement, shard
+def _placed(path: str, trees: Dict[str, Dict[str, torch.Tensor]],
+            count: int, step: int, abstract_state, placements,
+            config, optimizer):
+    """A train state of whole tensors placed as ``abstract_state``'s:
+    on its tensors' devices, or cut onto its mesh by ``placements``."""
+    from ..parallel.mesh import shard
     from .train import AdamState, TrainState
 
-    with open(os.path.join(path, "train_state.json")) as f:
-        meta = json.load(f)
-    trees = {}
-    for name in ("params", "mu", "nu"):
-        with np.load(os.path.join(path, f"{name}.npz")) as data:
-            trees[name] = flax_params_to_state_dict(
-                {k: data[k] for k in data.files})
     ref = abstract_state.params
     if set(trees["params"]) != set(ref):
         raise KeyError(f"{path}: saved parameters do not match the "
                        f"abstract state's")
-    mesh, placements = abstract_state.mesh, abstract_state.placements
-    if abstract_state.sharded and meta.get("placements"):
-        if meta["mesh"] != mesh.shape:
-            raise ValueError(f"{path}: saved on a mesh {meta['mesh']}, "
-                             f"restoring onto {mesh.shape}")
-        placements = {k: Placement(_spec_from_json(v))
-                      for k, v in meta["placements"].items()}
+
+    def shapes(t):
+        return [s.shape for s in t] if abstract_state.sharded else t.shape
 
     def place(tree):
-        if abstract_state.sharded:
-            return {k: shard(v, mesh, placements[k]) for k, v in tree.items()}
-        return {k: v.to(ref[k].device) for k, v in tree.items()}
+        out = {}
+        for k, v in tree.items():
+            out[k] = shard(v, abstract_state.mesh, placements[k]) \
+                if abstract_state.sharded else v.to(ref[k].device)
+            if shapes(out[k]) != shapes(ref[k]):
+                raise ValueError(f"{path}: {k} is placed as "
+                                 f"{shapes(out[k])}, the abstract state "
+                                 f"holds {shapes(ref[k])}")
+        return out
 
     return TrainState(place(trees["params"]),
-                      AdamState(int(meta["count"]), place(trees["mu"]),
+                      AdamState(int(count), place(trees["mu"]),
                                 place(trees["nu"])),
-                      int(meta["step"]), config=meta.get("model"),
-                      optimizer=meta.get("optimizer"), mesh=mesh,
-                      placements=placements)
+                      int(step), config=config, optimizer=optimizer,
+                      mesh=abstract_state.mesh, placements=placements)
+
+
+def restore_train_state(path: str, abstract_state):
+    """Restore a train state onto the layout of ``abstract_state`` (a
+    state of the same model): whole tensors on its tensors' devices, or,
+    for a sharded one, cut onto its mesh.
+
+    ``path`` holds either the port's layout (written by
+    :func:`save_train_state`: ``train_state.json``; a sharded state is
+    cut by the saved placements) or the orbax checkpoint that the JAX
+    package's ``save_train_state`` writes (``_CHECKPOINT_METADATA``,
+    ``_METADATA``; cut by ``abstract_state``'s placements, as orbax takes
+    its shardings from its abstract state).  orbax stores neither the
+    model's config nor the optimizer's settings: they come from
+    ``abstract_state``."""
+    from ..parallel.mesh import Placement
+
+    if os.path.exists(os.path.join(path, "train_state.json")):
+        with open(os.path.join(path, "train_state.json")) as f:
+            meta = json.load(f)
+        trees = {}
+        for name in ("params", "mu", "nu"):
+            with np.load(os.path.join(path, f"{name}.npz")) as data:
+                trees[name] = flax_params_to_state_dict(
+                    {k: data[k] for k in data.files})
+        mesh, placements = abstract_state.mesh, abstract_state.placements
+        if abstract_state.sharded and meta.get("placements"):
+            if meta["mesh"] != mesh.shape:
+                raise ValueError(f"{path}: saved on a mesh {meta['mesh']}, "
+                                 f"restoring onto {mesh.shape}")
+            placements = {k: Placement(_spec_from_json(v))
+                          for k, v in meta["placements"].items()}
+        return _placed(path, trees, meta["count"], meta["step"],
+                       abstract_state, placements, meta.get("model"),
+                       meta.get("optimizer"))
+    if not any(os.path.exists(os.path.join(path, name))
+               for name in ("_CHECKPOINT_METADATA", "_METADATA")):
+        raise FileNotFoundError(
+            f"{path}: neither a train state of the port (train_state.json) "
+            "nor an orbax checkpoint of the JAX package "
+            "(_CHECKPOINT_METADATA, _METADATA)")
+    from .orbax import read_train_state
+
+    whole = train_state_from_flax(read_train_state(path), device="cpu")
+    trees = {"params": whole.params, "mu": whole.opt_state.mu,
+             "nu": whole.opt_state.nu}
+    return _placed(path, trees, whole.opt_state.count, whole.step,
+                   abstract_state, abstract_state.placements,
+                   abstract_state.config, abstract_state.optimizer)

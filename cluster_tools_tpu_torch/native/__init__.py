@@ -6,8 +6,8 @@ shared libraries are compiled with g++ the first time a process needs
 them (the C API is flat arrays; see ``core/build.py``): the solvers from
 ``src/solvers.cpp`` and the chunk formats' codecs (LZ4, BloscLZ,
 Zstandard, Snappy, LZF, the byte shuffle and bitshuffle, HDF5's lookup3
-checksum; wrapped by ``core/codecs.py``) from ``src/codecs.cpp``.  Without a
-compiler they raise: the package has no slower stand-in for them.
+and OCDBT's CRC-32C checksums; wrapped by ``core/codecs.py``) from
+``src/codecs.cpp``.  Without a compiler they raise: the package has no slower stand-in for them.
 """
 
 from __future__ import annotations
@@ -113,6 +113,8 @@ def codecs() -> ctypes.CDLL:
         lib.bitunshuffle.restype = None
         lib.lookup3.argtypes = [ptr, i64, ctypes.c_uint32]
         lib.lookup3.restype = ctypes.c_uint32
+        lib.crc32c.argtypes = [ptr, i64, ctypes.c_uint32]
+        lib.crc32c.restype = ctypes.c_uint32
         _codecs = lib
         return _codecs
 

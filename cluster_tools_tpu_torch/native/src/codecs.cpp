@@ -18,7 +18,9 @@
 // * byte shuffle and unshuffle (element byte j of every element together),
 //   and the bitshuffle of c-blosc (bit k of byte j of every element
 //   together, over groups of 8 elements);
-// * Jenkins' lookup3 hash, the checksum of HDF5's metadata.
+// * Jenkins' lookup3 hash, the checksum of HDF5's metadata;
+// * CRC-32C (Castagnoli), the checksum of tensorstore's OCDBT manifests
+//   and nodes.
 //
 // Every decoder returns the number of bytes written, or a negative code on
 // a corrupt or truncated stream; it never reads or writes out of bounds.
@@ -1105,6 +1107,24 @@ uint32_t lookup3(const uint8_t* k, int64_t n, uint32_t initval) {
     b ^= a; b -= rot(a, 14);
     c ^= b; c -= rot(b, 24);
     return c;
+}
+
+// CRC-32C (Castagnoli, reflected polynomial 0x82F63B78) of p[0:n],
+// continuing from ``crc`` (0 to start): the checksum that closes every
+// file of tensorstore's OCDBT format
+uint32_t crc32c(const uint8_t* p, int64_t n, uint32_t crc) {
+    static const auto table = [] {
+        std::vector<uint32_t> t(256);
+        for (uint32_t i = 0; i < 256; ++i) {
+            uint32_t c = i;
+            for (int k = 0; k < 8; ++k) c = (c >> 1) ^ (0x82F63B78u & (0u - (c & 1)));
+            t[i] = c;
+        }
+        return t;
+    }();
+    crc = ~crc;
+    for (int64_t i = 0; i < n; ++i) crc = table[(crc ^ p[i]) & 0xFF] ^ (crc >> 8);
+    return ~crc;
 }
 
 }  // extern "C"

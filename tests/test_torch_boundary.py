@@ -593,6 +593,37 @@ def test_training_modules_are_held_to_the_rule():
     assert not missing, missing
 
 
+def test_orbax_reader_modules_are_held_to_the_rule():
+    """The OCDBT reader and the orbax layout are among the modules the
+    import checks walk; importing them (and the checkpoint module that
+    dispatches to them) loads neither jax, the JAX package, orbax,
+    tensorstore, optax, ml_dtypes nor zstandard; no source of the port
+    imports ml_dtypes, zstandard or a CRC-32C library; and the port's
+    lint forbids orbax, ml_dtypes and zstandard."""
+    from cluster_tools_tpu_torch.analysis import boundary
+
+    mods = set(_port_modules())
+    for name in ("core.ocdbt", "models.orbax", "models.checkpoint",
+                 "core.storage"):
+        assert f"cluster_tools_tpu_torch.{name}" in mods, name
+    code = ("import sys\n"
+            "import cluster_tools_tpu_torch.core.ocdbt\n"
+            "import cluster_tools_tpu_torch.models.orbax\n"
+            "import cluster_tools_tpu_torch.models.checkpoint\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'cluster_tools_tpu', 'flax', 'optax', "
+            "'orbax', 'tensorstore', 'ml_dtypes', 'zstandard', "
+            "'google_crc32c', 'crc32c')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
+    libs = {"ml_dtypes", "zstandard", "google_crc32c", "crc32c", "orbax"}
+    bad = [(os.path.relpath(p, ROOT), sorted(_imports(p)[1] & libs))
+           for p in _sources() if _imports(p)[1] & libs]
+    assert not bad, bad
+    assert {"orbax", "ml_dtypes", "zstandard", "tensorstore",
+            "optax"} <= boundary.FORBIDDEN
+
+
 FIXTURE_GENERATOR = os.path.join(ROOT, "tests", "data", "torch_formats",
                                  "make_fixtures.py")
 
