@@ -194,7 +194,12 @@ sources, then runs eighteen phases, each of which must pass:
    memory, the profile of one step with GroupNorm's share), then 3 steps of
    ``shard_train_step`` over 8 shards from the same start, the losses
    within 2e-2 of the unsharded ones; (c) the sharded state after step 1
-   saved and restored bitwise, the next loss equal; (d)
+   (8 shards) and the unsharded one, each saved in orbax's layout (the
+   JAX package's ``save_train_state``'s: an OCDBT store of zarr arrays,
+   each shard its own chunk) and restored bitwise onto 8 shards and onto
+   one device, every OCDBT node's checksum verified and every chunk read
+   back, the next loss within 1e-6 of the step from the state in memory
+   (save and restore seconds and the bytes on the disk logged); (d)
    ``pipeline_apply``, ``moe_apply`` (two capacities) and
    ``ring_attention`` (float32 and bfloat16, causal and not) over 4 shards,
    each against its dense version on the card and timed beside it; (e)
@@ -3863,10 +3868,7 @@ def _chunk_decoders(ds):
                 inner._decode_chunk(entry, pos)
         return decode, nbytes
     grid = [range(-(-s // c)) for s, c in zip(ds.shape, ds.chunks)]
-    raws = []
-    for cid in product(*grid):
-        with open(ds._chunk_file(cid), "rb") as fh:
-            raws.append(fh.read())
+    raws = [ds._kv.get(ds._chunk_key(cid)) for cid in product(*grid)]
     nbytes = len(raws) * int(np.prod(ds.chunks)) * ds.dtype.itemsize
 
     def decode():
@@ -4695,6 +4697,7 @@ def train_full(root: str, gt: np.ndarray):
         step(states[-1], x, y)
         torch.cuda.synchronize()
     prof_rec = _gn_share(prof)
+    whole_1 = states[0]
     del states, prof
     rec = {"batch": list(x.shape), "params": n_params, "losses": losses,
            "ms_per_step": float(np.median(ms[1:])), "ms_steps": ms,
@@ -4720,48 +4723,92 @@ def train_full(root: str, gt: np.ndarray):
     if max(rel) > SHARD_BF16_RTOL:
         raise AssertionError(f"sharded full-width losses differ: {srec}")
     return {"model": model, "step": sstep, "start": sstate,
-            "after_1": sstates[0], "loss_2": slosses[1], "x": x, "y": y,
+            "after_1": sstates[0], "x": x, "y": y, "whole_step": step,
+            "whole_start": start, "whole_after_1": whole_1,
             "unsharded": rec, "sharded": srec}
 
 
-def train_state_round_trip(root: str, run):
-    """Phase 18c: the sharded full-width state after step 1 saved and
-    restored onto its placements: params and both moments bitwise, the
-    step and count equal; the next step from the restored state gives
-    18b's second loss within RESTORE_RTOL."""
+def _tree_bytes(path: str) -> int:
+    """The bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _same_state(a, b) -> bool:
+    """Params and both moments bitwise (each shard of a sharded state),
+    step and count equal."""
     import torch
 
+    def parts(v):
+        return v if isinstance(v, list) else [v]
+
+    return a.step == b.step and a.opt_state.count == b.opt_state.count \
+        and all(len(parts(ta[k])) == len(parts(tb[k])) and all(
+            torch.equal(u, v) for u, v in zip(parts(ta[k]), parts(tb[k])))
+            for ta, tb in ((a.params, b.params),
+                           (a.opt_state.mu, b.opt_state.mu),
+                           (a.opt_state.nu, b.opt_state.nu))
+            for k in ta)
+
+
+def train_state_round_trip(root: str, run):
+    """Phase 18c: the full-width state after step 1, sharded (8 shards)
+    and unsharded, each written by ``save_train_state`` in orbax's layout
+    and restored onto 8 shards and onto one device: params and both
+    moments bitwise, step and count equal.  The port's ``OcdbtStore``
+    opens each written store (every node's checksum verified) and every
+    chunk is read back.  The next step from each restore gives the loss
+    of the same step from the state in memory within RESTORE_RTOL."""
+    import torch
+
+    from cluster_tools_tpu_torch.core.ocdbt import OcdbtStore
+    from cluster_tools_tpu_torch.models import train as T
     from cluster_tools_tpu_torch.models.checkpoint import (
         restore_train_state, save_train_state)
 
-    path = os.path.join(root, "train_state")
-    s1 = run["after_1"]
-    t0 = time.perf_counter()
-    save_train_state(path, s1)
-    save_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    back = restore_train_state(path, run["start"])
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    same = all(torch.equal(a, b)
-               for tree_a, tree_b in ((s1.params, back.params),
-                                      (s1.opt_state.mu, back.opt_state.mu),
-                                      (s1.opt_state.nu, back.opt_state.nu))
-               for k in tree_a for a, b in zip(tree_a[k], tree_b[k]))
-    _, loss = run["step"](back, run["x"], run["y"])
-    rec = {"bitwise": same, "step": back.step, "count":
-           back.opt_state.count, "loss_after_restore": float(loss),
-           "loss_without": run["loss_2"], "rel_err":
-           abs(float(loss) / run["loss_2"] - 1), "save_s": save_s,
-           "restore_s": restore_s, "bytes": sum(
-               os.path.getsize(os.path.join(path, f))
-               for f in os.listdir(path))}
-    log(f"train-state-round-trip {json.dumps(rec)}")
-    if not same or back.step != s1.step or \
-            back.opt_state.count != s1.opt_state.count or \
-            rec["rel_err"] > RESTORE_RTOL:
-        raise AssertionError(f"train-state round trip: {rec}")
-    return rec
+    mesh, placements = run["start"].mesh, run["start"].placements
+    onto = {"8 shards": (run["start"], run["step"]),
+            "one device": (run["whole_start"], run["whole_step"])}
+    saved = {"sharded": run["after_1"], "unsharded": run["whole_after_1"]}
+    recs = []
+    for name, s1 in saved.items():
+        path = os.path.join(root, f"train_state_{name}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_train_state(path, s1)
+        save_s = time.perf_counter() - t0
+        store = OcdbtStore(path)
+        keys = store.list()
+        chunk_bytes = sum(len(store.read(k)) for k in keys)
+        files = sorted(os.listdir(path))
+        for target, (abstract, step) in onto.items():
+            want = s1 if (target == "8 shards") == s1.sharded else (
+                T.unplace_state(s1) if s1.sharded
+                else T.place_state(s1, mesh, placements))
+            t0 = time.perf_counter()
+            back = restore_train_state(path, abstract)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            _, loss = step(back, run["x"], run["y"])
+            _, loss_mem = step(want, run["x"], run["y"])
+            rec = {"saved": name, "onto": target,
+                   "bitwise": _same_state(back, want),
+                   "step": back.step, "count": back.opt_state.count,
+                   "loss_after_restore": float(loss),
+                   "loss_from_memory": float(loss_mem),
+                   "rel_err": abs(float(loss) / float(loss_mem) - 1),
+                   "save_s": save_s, "restore_s": restore_s,
+                   "bytes": _tree_bytes(path), "keys": len(keys),
+                   "value_bytes": chunk_bytes, "files": files}
+            log(f"train-state-round-trip {json.dumps(rec)}")
+            recs.append(rec)
+            if not rec["bitwise"] or back.step != 1 or \
+                    back.opt_state.count != 1 or \
+                    rec["rel_err"] > RESTORE_RTOL or \
+                    "_CHECKPOINT_METADATA" not in files or \
+                    "train_state.json" in files:
+                raise AssertionError(f"train-state round trip: {rec}")
+    return recs
 
 
 def _check(name, got, want, rtol, atol, ms, dense_ms, **extra):

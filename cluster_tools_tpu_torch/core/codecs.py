@@ -9,7 +9,11 @@ that size:
   and blosc's codec 4 write them: several frames in a row and skippable
   frames read; the content checksum, where a frame has one, is verified;
   a frame that names a dictionary raises ``NotImplementedError``
-  (tensorstore and numcodecs write none);
+  (tensorstore and numcodecs write none).  :func:`zstd_compress` writes
+  a frame that stores its bytes (RLE blocks for runs of one byte, raw
+  blocks otherwise) with the content size and checksum: what an orbax
+  checkpoint's zarr chunks and OCDBT nodes need to be read by any
+  Zstandard decoder (``core/ocdbt.py``, ``models/orbax.py``);
 * Snappy's raw format (blosc's codec 2);
 * liblzf's format (h5py's LZF filter, HDF5 filter 32000);
 * Jenkins' lookup3, the checksum of HDF5's metadata, and CRC-32C, the
@@ -56,6 +60,18 @@ def _zstd_check(n: int) -> None:
                                   "(dictionaries are not supported)")
     if n < 0:
         raise ValueError(f"zstd frame: {_ZSTD_ERRORS[n]}")
+
+
+def zstd_compress(data) -> bytes:
+    """One Zstandard frame of ``data``: its bytes stored in blocks of at
+    most 128 KiB (a block of one repeated byte as an RLE block), the
+    content size in the header, the XXH64 checksum at the end."""
+    src = as_u8(data)
+    lib = _codecs()
+    out = np.empty(int(lib.zstd_bound(len(src))), np.uint8)
+    n = int(lib.zstd_compress(src.ctypes.data, len(src), out.ctypes.data,
+                              len(out)))
+    return out[:n].tobytes()
 
 
 def zstd_decompress(data, nbytes: int) -> np.ndarray:

@@ -1,12 +1,16 @@
-"""A read-only reader of tensorstore's OCDBT key-value store.
+"""A reader and a writer of tensorstore's OCDBT key-value store.
 
 OCDBT ("optionally cooperative distributed B+tree") is the store that
 orbax writes a checkpoint's arrays into (``models/orbax.py``): one
 directory holding ``manifest.ocdbt`` and data files under ``d/`` (orbax
 adds one sub-database per process, ``ocdbt.process_<i>/``, and a merged
-tree at the top).  The port reads it with the standard library, numpy and
-its own codecs (``core/codecs.py``: Zstandard and CRC-32C), so the card's
-machine needs neither tensorstore nor orbax.
+tree at the top).  The port reads and writes it with the standard
+library, numpy and its own codecs (``core/codecs.py``: Zstandard and
+CRC-32C), so the card's machine needs neither tensorstore nor orbax.
+:class:`OcdbtStore` reads the newest version of a database;
+:class:`OcdbtWriter` writes a new database of one version, and
+:func:`write_manifest` a manifest whose tree is another database's (the
+top of an orbax checkpoint, over ``ocdbt.process_0/``).
 
 Every manifest and B+tree node is framed the same way:
 
@@ -45,6 +49,15 @@ raises ``NotImplementedError`` naming what it found: a format version
 other than 0, a compression other than none and zstd, a numbered
 manifest (``manifest_kind`` 1), a value kind other than inline and
 data-file reference.
+
+The writer emits what the reader takes and what orbax's databases hold:
+a single manifest (kind 0) of one version, generation 1, no version-tree
+nodes; every manifest and node zstd-framed (``codecs.zstd_compress``
+stores the bytes); values up to ``max_inline_value_bytes`` inline in the
+leaves, longer ones in a data file under ``d/`` as they are put; leaves
+cut where the next entry would pass ``max_decoded_node_bytes``, and
+interior nodes over them only then; an empty database's root is the
+missing sentinel in a data file of empty path, as tensorstore writes it.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from __future__ import annotations
 import bisect
 import os
 import struct
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 from . import codecs
@@ -361,4 +375,265 @@ class OcdbtStore:
         return self._find(key) is not None
 
 
-__all__ = ["OcdbtStore"]
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+#: orbax's OCDBT config (``max_inline_value_bytes``,
+#: ``max_decoded_node_bytes``, ``version_tree_arity_log2``, the zstd level
+#: of the nodes); tensorstore refuses to open a database whose config
+#: differs from the one it is asked for
+ORBAX_CONFIG = {"max_inline_value_bytes": 1024,
+                "max_decoded_node_bytes": 100_000_000,
+                "version_tree_arity_log2": 4, "zstd_level": 0}
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _common(a: bytes, b: bytes) -> int:
+    return len(os.path.commonprefix([a, b]))
+
+
+def _frame(magic: int, body: bytes) -> bytes:
+    """``body`` framed: version 0, zstd, and the CRC-32C of it all."""
+    payload = _varint(0) + _varint(1) + codecs.zstd_compress(body)
+    head = struct.pack(">I", magic) + struct.pack("<Q", 16 + len(payload))
+    return head + payload + struct.pack("<I", codecs.crc32c(head + payload))
+
+
+def _file_table(files: List[Tuple[str, str]]) -> bytes:
+    """The data file table of ``(base, relative path)`` pairs, in
+    order."""
+    full = [(b + r).encode() for b, r in files]
+    prefix = [0] + [_common(a, b) for a, b in zip(full, full[1:])]
+    return (_varint(len(full)) + _varints(prefix[1:])
+            + _varints(len(f) - p for f, p in zip(full, prefix))
+            + _varints(len(b.encode()) for b, _ in files)
+            + b"".join(f[p:] for f, p in zip(full, prefix)))
+
+
+def _key_columns(keys: List[bytes], interior: bool) -> bytes:
+    """Keys, each sharing a prefix with the one before it; in an
+    interior node with a subtree common prefix of 0 (children store
+    their keys whole)."""
+    prefix = [0] + [_common(a, b) for a, b in zip(keys, keys[1:])]
+    return (_varints(prefix[1:])
+            + _varints(len(k) - p for k, p in zip(keys, prefix))
+            + (_varints(0 for _ in keys) if interior else b"")
+            + b"".join(k[p:] for k, p in zip(keys, prefix)))
+
+
+class Root(NamedTuple):
+    """A written tree: its root node (a data file path relative to the
+    database's directory, an offset and a length; ``file`` is ``None``
+    for an empty tree), its height and its statistics."""
+
+    file: Optional[str]
+    offset: int
+    length: int
+    height: int
+    num_keys: int
+    tree_bytes: int
+    indirect_bytes: int
+
+
+class _Sub(NamedTuple):
+    """A written subtree, as its parent's entry describes it."""
+
+    first: bytes
+    offset: int
+    length: int
+    num_keys: int
+    tree_bytes: int
+    indirect_bytes: int
+
+
+#: a bound on the bytes of one varint the writer emits
+_VARINT = 10
+
+
+def write_manifest(path: str, root: Root, base: str = "") -> None:
+    """Write ``path/manifest.ocdbt``: a single manifest of one version
+    (generation 1) whose tree is ``root``, its node file read under
+    ``base`` (``"ocdbt.process_0/"`` for a tree written in that
+    subdirectory: the paths of that tree's own tables are then read
+    under it too), with the config :data:`ORBAX_CONFIG`.  Written to a
+    temporary file, then renamed."""
+    cfg = ORBAX_CONFIG
+    if root.file is None:
+        files, offset, length = [("", "")], _MISSING, _MISSING
+    else:
+        files, offset, length = [(base, root.file)], root.offset, \
+            root.length
+    body = (os.urandom(16) + _varint(0)
+            + _varint(cfg["max_inline_value_bytes"])
+            + _varint(cfg["max_decoded_node_bytes"])
+            + bytes([cfg["version_tree_arity_log2"]]) + _varint(1)
+            + struct.pack("<i", cfg["zstd_level"])
+            + _file_table(files) + _varint(1) + _varint(1)
+            + bytes([root.height]) + _varints((0, offset, length))
+            + _varints((root.num_keys, root.tree_bytes,
+                        root.indirect_bytes))
+            + struct.pack("<Q", time.time_ns()) + _varint(0))
+    dst = os.path.join(path, "manifest.ocdbt")
+    tmp = f"{dst}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(_frame(MANIFEST_MAGIC, body))
+    os.replace(tmp, dst)
+
+
+class OcdbtWriter:
+    """A new OCDBT database in the directory ``path``, written once.
+
+    ``put(key, value)`` stores a value: up to ``max_inline_value_bytes``
+    it is kept for its leaf, longer it is appended at once to the data
+    file ``d/<32 hex digits>``.  ``get`` and ``has`` read back what was
+    put (the key-value surface ``core/storage.py``'s zarr arrays write
+    through).  :meth:`commit` appends the B+tree's nodes to the same data
+    file, writes the manifest and returns the :class:`Root`.  Keys are
+    bytes or ``str`` (UTF-8); a key put twice keeps its last value.
+    The bounds are :data:`ORBAX_CONFIG`'s."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._name = f"d/{os.urandom(16).hex()}"
+        self._values: Dict[bytes, Union[bytes, Tuple[int, int]]] = {}
+        self._file = None
+        self._size = 0
+        self._root: Optional[Root] = None
+        os.makedirs(os.path.join(path, "d"), exist_ok=True)
+
+    @staticmethod
+    def _key(key: Key) -> bytes:
+        return key.encode() if isinstance(key, str) else bytes(key)
+
+    def _append(self, data) -> int:
+        """Append ``data`` to the data file; its offset there."""
+        if self._file is None:
+            self._file = open(os.path.join(self.path, self._name), "wb")
+        at = self._size
+        self._file.write(data)
+        self._size += len(data)
+        return at
+
+    def put(self, key: Key, value) -> None:
+        if self._root is not None:
+            raise ValueError(f"{self.path}: the OCDBT database is "
+                             "committed")
+        value = memoryview(value).cast("B")
+        self._values[self._key(key)] = bytes(value) if \
+            len(value) <= ORBAX_CONFIG["max_inline_value_bytes"] else \
+            (self._append(value), len(value))
+
+    def get(self, key: Key) -> Optional[bytes]:
+        value = self._values.get(self._key(key))
+        if not isinstance(value, tuple):
+            return value
+        if self._file is not None:
+            self._file.flush()
+        with open(os.path.join(self.path, self._name), "rb") as f:
+            f.seek(value[0])
+            return f.read(value[1])
+
+    def has(self, key: Key) -> bool:
+        return self._key(key) in self._values
+
+    # -- the tree ----------------------------------------------------------
+    def _runs(self, sizes: List[int]) -> List[range]:
+        """Consecutive entries per node: each node's body (its height,
+        data file table and count, and for each entry at most
+        ``sizes[i]`` bytes) within ``max_decoded_node_bytes``."""
+        bound = ORBAX_CONFIG["max_decoded_node_bytes"]
+        fixed = 1 + len(_file_table([("", self._name)])) + _VARINT
+        runs, start, total = [], 0, fixed
+        for i, n in enumerate(sizes):
+            if total + n > bound and i > start:
+                runs.append(range(start, i))
+                start, total = i, fixed
+            total += n
+        runs.append(range(start, len(sizes)))
+        return runs
+
+    def _node(self, body: bytes) -> Tuple[int, int]:
+        frame = _frame(BTREE_MAGIC, body)
+        return self._append(frame), len(frame)
+
+    def _leaves(self, keys: List[bytes]) -> List[_Sub]:
+        vals = [self._values[k] for k in keys]
+        sizes = [len(k) + (len(v) if isinstance(v, bytes) else 0)
+                 + 6 * _VARINT for k, v in zip(keys, vals)]
+        out = []
+        for run in self._runs(sizes):
+            ks, vs = keys[run.start:run.stop], vals[run.start:run.stop]
+            refs = [v for v in vs if isinstance(v, tuple)]
+            table = [("", self._name)] if refs else []
+            offset, length = self._node(
+                b"\0" + _file_table(table) + _varint(len(ks))
+                + _key_columns(ks, interior=False)
+                + _varints(len(v) if isinstance(v, bytes) else v[1]
+                           for v in vs)
+                + _varints(int(isinstance(v, tuple)) for v in vs)
+                + _varints(0 for _ in refs) + _varints(r[0] for r in refs)
+                + b"".join(v for v in vs if isinstance(v, bytes)))
+            out.append(_Sub(ks[0], offset, length, len(ks), length,
+                            sum(r[1] for r in refs)))
+        return out
+
+    def _interior(self, subs: List[_Sub], height: int) -> List[_Sub]:
+        out = []
+        for run in self._runs([len(s.first) + 10 * _VARINT
+                               for s in subs]):
+            ch = subs[run.start:run.stop]
+            offset, length = self._node(
+                bytes([height]) + _file_table([("", self._name)])
+                + _varint(len(ch))
+                + _key_columns([c.first for c in ch], interior=True)
+                + _varints(0 for _ in ch)
+                + b"".join(_varints(getattr(c, f) for c in ch) for f in (
+                    "offset", "length", "num_keys", "tree_bytes",
+                    "indirect_bytes")))
+            out.append(_Sub(ch[0].first, offset, length,
+                            sum(c.num_keys for c in ch),
+                            length + sum(c.tree_bytes for c in ch),
+                            sum(c.indirect_bytes for c in ch)))
+        return out
+
+    def commit(self) -> Root:
+        """Write the B+tree and ``manifest.ocdbt``; the tree's
+        :class:`Root`.  Nothing can be put after it."""
+        if self._root is not None:
+            return self._root
+        root = Root(None, _MISSING, _MISSING, 0, 0, 0, 0)
+        if self._values:
+            subs, height = self._leaves(sorted(self._values)), 0
+            while len(subs) > 1:
+                height += 1
+                subs = self._interior(subs, height)
+            top = subs[0]
+            root = Root(self._name, top.offset, top.length, height,
+                        top.num_keys, top.tree_bytes, top.indirect_bytes)
+        self.close()
+        self._root = root
+        write_manifest(self.path, root)
+        return root
+
+    def close(self) -> None:
+        """Close the data file (:meth:`commit` does)."""
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+
+__all__ = ["ORBAX_CONFIG", "OcdbtStore", "OcdbtWriter", "Root",
+           "write_manifest"]

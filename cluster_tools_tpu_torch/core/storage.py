@@ -17,11 +17,13 @@ and writes the on-disk formats that tensorstore writes:
   size their header states (z5/n5-java truncate them).  ``compression="blosc"`` creates raw chunks,
   as the JAX package does.
 * zarr v2: ``.zarray`` metadata, C order (F order read only), ``null``,
-  ``zlib`` or ``blosc`` compressor (``bz2`` and ``zstd`` read only),
+  ``zlib``, ``zstd`` or ``blosc`` compressor (``bz2`` read only),
   full-size edge chunks.  ``filters`` raise by name.  tensorstore's
   ``"bfloat16"`` reads as uint16 bits.  :func:`open_zarr_array` reads an
   array through a key-value store: a directory, or the OCDBT store of an
-  orbax checkpoint (``core/ocdbt.py``).
+  orbax checkpoint (``core/ocdbt.py``); :func:`create_zarr_array` writes
+  one, its chunks zstd frames, into a store that takes ``put`` (a
+  directory, or the OCDBT writer of an orbax checkpoint).
 
 HDF5 files (``.h5``/``.hdf``/``.hdf5``) go through the package's own
 reader and writer (``core/hdf5.py``), Knossos pyramids (read only) through
@@ -192,9 +194,10 @@ class _ZarrCodec:
     """zarr v2 chunk format: the elements in the metadata's byte order and
     C or F order (returned C-contiguous), ``null``, ``zlib``/``gzip``,
     ``bz2``, ``zstd`` or ``blosc`` compressed.  Writes C order, ``null``,
-    ``zlib``/``gzip`` and ``blosc``.  tensorstore's dtype ``"bfloat16"``
-    (which numpy does not know) reads as the elements' little-endian
-    uint16 bits (``bfloat16`` is then true)."""
+    ``zlib``/``gzip``, ``zstd`` (frames that store their bytes,
+    ``codecs.zstd_compress``) and ``blosc``.  tensorstore's dtype ``"bfloat16"`` (which numpy does not know) reads
+    as the elements' little-endian uint16 bits (``bfloat16`` is then
+    true)."""
 
     _READ = (None, "zlib", "gzip", "bz2", "zstd", "blosc")
 
@@ -235,11 +238,13 @@ class _ZarrCodec:
             arr.shape)
 
     def encode(self, arr: np.ndarray) -> bytes:
-        if self.order != "C" or self.kind in ("bz2", "zstd"):
+        if self.order != "C" or self.kind == "bz2":
             raise NotImplementedError(
                 f"writing zarr {self.order}-order {self.kind} chunks is not "
-                "supported (creation writes C order, zlib or blosc)")
+                "supported (creation writes C order, zlib, zstd or blosc)")
         body = np.ascontiguousarray(arr, dtype=self.disk).tobytes()
+        if self.kind == "zstd":
+            return codecs.zstd_compress(body)
         if self.kind == "zlib":
             return zlib.compress(body, self.level)
         if self.kind == "gzip":
@@ -301,8 +306,9 @@ def _normalize_index(bb, shape) -> Tuple[Tuple[slice, ...], List[int]]:
 class DirectoryKV:
     """A directory as a key-value store: a key is a ``/``-separated path
     under it.  A chunked array reads its chunks through this interface
-    (``get`` and ``has``), which ``core/ocdbt.py``'s store offers too.
-    A key that would leave the directory raises ``OSError``, as a data
+    (``get`` and ``has``), which ``core/ocdbt.py``'s store offers too,
+    and writes them with ``put`` (each file written atomically).  A key
+    that would leave the directory raises ``OSError``, as a data
     file path of an OCDBT store does."""
 
     def __init__(self, path: str):
@@ -324,12 +330,19 @@ class DirectoryKV:
     def has(self, key: str) -> bool:
         return os.path.exists(self.file(key))
 
+    def put(self, key: str, value: bytes) -> None:
+        path = self.file(key)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        _atomic_write(path, value)
+
 
 class Dataset:
     """A chunked N5/zarr array with numpy-style slicing (C-order axes).
 
-    Its chunks are files under ``path``; or, read only, the keys under
-    ``prefix`` of a key-value store ``kv`` (:func:`open_zarr_array`).
+    Its chunks are files under ``path`` (a :class:`DirectoryKV`), or the
+    keys under ``prefix`` of another key-value store ``kv``
+    (:func:`open_zarr_array`, :func:`create_zarr_array`); the array is
+    read only if its store takes no ``put``.
     ``n_threads`` is accepted for reference API compatibility (z5's
     ds.n_threads, multicut/solve_subproblems.py:241) and ignored."""
 
@@ -339,7 +352,7 @@ class Dataset:
         self.flavor = flavor
         self._kv = DirectoryKV(path) if kv is None else kv
         self._prefix = prefix
-        self._writable = kv is None
+        self._writable = hasattr(self._kv, "put")
         self.attrs = AttrsView(path, flavor, is_dataset=True)
         self.n_threads = 1
         if flavor == "n5":
@@ -395,9 +408,6 @@ class Dataset:
         return self._prefix + "/".join(str(c)
                                        for c in reversed(tuple(chunk_id)))
 
-    def _chunk_file(self, chunk_id: Sequence[int]) -> str:
-        return self._kv.file(self._chunk_key(chunk_id))
-
     def _chunk_bb(self, chunk_id: Sequence[int]) -> Tuple[slice, ...]:
         return tuple(slice(c * cs, min((c + 1) * cs, s))
                      for c, cs, s in zip(chunk_id, self._chunks, self._shape))
@@ -408,9 +418,7 @@ class Dataset:
         return None if raw is None else self._codec.decode(raw)
 
     def _store_chunk(self, chunk_id, full: np.ndarray) -> None:
-        path = self._chunk_file(chunk_id)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        _atomic_write(path, self._codec.encode(full))
+        self._kv.put(self._chunk_key(chunk_id), self._codec.encode(full))
 
     def _empty_chunk(self) -> np.ndarray:
         fill = self._fill if self.flavor == "zarr" else 0
@@ -445,8 +453,8 @@ class Dataset:
 
     def __setitem__(self, bb, value) -> None:
         if not self._writable:
-            raise NotImplementedError(f"{self.path}: an array read from a "
-                                      "key-value store is read only")
+            raise NotImplementedError(f"{self.path}: the array's key-value "
+                                      "store is read only")
         sl, squeeze = _normalize_index(bb, self._shape)
         region = [s.stop - s.start for s in sl]
         arr = np.asarray(value)
@@ -467,7 +475,7 @@ class Dataset:
                 full[dst] = arr[src]
                 self._store_chunk(cid, full)
                 continue
-            with _chunk_lock(self._chunk_file(cid)):
+            with _chunk_lock(f"{self._kv.path}/{self._chunk_key(cid)}"):
                 full = self._empty_chunk()
                 old = self._load_chunk(cid)
                 if old is not None:
@@ -495,11 +503,32 @@ class Dataset:
 def open_zarr_array(kv, key: str) -> Dataset:
     """The zarr v2 array stored under ``key`` of the key-value store
     ``kv`` (``.zarray`` and the chunks at ``<key>/<chunk>``; a
-    :class:`DirectoryKV` or ``core.ocdbt.OcdbtStore``), read only."""
+    :class:`DirectoryKV`, writable, or ``core.ocdbt.OcdbtStore``, read
+    only)."""
     raw = kv.get(f"{key}/.zarray")
     if raw is None:
         raise KeyError(f"no zarr array {key!r} in {kv.path}")
     return Dataset(f"{kv.path}/{key}", "zarr", json.loads(raw), kv=kv,
+                   prefix=f"{key}/")
+
+
+def create_zarr_array(kv, key: str, shape: Sequence[int],
+                      chunks: Sequence[int], dtype) -> Dataset:
+    """A new zarr v2 array under ``key`` of the key-value store ``kv``
+    (which takes ``put``: a :class:`DirectoryKV` or
+    ``core.ocdbt.OcdbtWriter``): its ``.zarray``
+    as tensorstore writes it for orbax (keys sorted, no spaces; C order,
+    zstd level 1, fill value ``null``, ``.`` between a chunk key's
+    indices), and the returned array writes its chunks into ``kv``."""
+    meta = {"chunks": [int(c) for c in chunks],
+            "compressor": {"id": "zstd", "level": 1},
+            "dimension_separator": ".",
+            "dtype": np.dtype(dtype).str,
+            "fill_value": None, "filters": None, "order": "C",
+            "shape": [int(n) for n in shape], "zarr_format": 2}
+    kv.put(f"{key}/.zarray", json.dumps(meta, sort_keys=True,
+                                        separators=(",", ":")).encode())
+    return Dataset(f"{kv.path}/{key}", "zarr", meta, kv=kv,
                    prefix=f"{key}/")
 
 

@@ -19,21 +19,26 @@ carry the parameters between flax's layout and the port's ``UNet3D``
   weight laid out ``(in, out, kd, kh, kw)``: the taps are flipped;
 * GroupNorm ``scale``/``bias`` are torch's ``weight``/``bias``.
 
-A training state (``models/train.py``) is written in the port's own
-layout:
+A training state (``models/train.py``) is written as the JAX package's
+``save_train_state`` writes one: an orbax ``StandardCheckpointHandler``
+directory (``_CHECKPOINT_METADATA``, ``_METADATA``, ``_sharding``,
+``array_metadatas/`` and an OCDBT store of zarr v2 arrays:
+``models/orbax.py``, ``core/ocdbt.py``), written without orbax, of the
+JAX ``TrainState`` ``(params, (ScaleByAdamState(count, mu, nu),
+EmptyState, EmptyState), step)``: the parameters and both moments in
+flax's layout, ``count`` and ``step`` int32 scalars.  The JAX package's
+``restore_train_state`` restores it, so the JAX package resumes a run of
+the port.  A sharded state is written shard by shard: the transposes
+and flips apply to each shard, the output-channel split of its
+placements is the zarr chunk grid, and a replicated shard is written
+once.
 
-    <path>/train_state.json — step, the optimizer's count and settings,
-                              the model config, each tensor's placement
-                              and the mesh's axes (null when unsharded)
-    <path>/params.npz, mu.npz, nu.npz — the parameters and both Adam
-                              moments under the flax names of params.npz
-
-A sharded state is joined on the host before the write; restore places
-each tensor back by its placement.  :func:`restore_train_state` also
-reads the orbax directories that the JAX package's ``save_train_state``
-writes (``_CHECKPOINT_METADATA``, ``_METADATA`` and an OCDBT store:
-``models/orbax.py``), without orbax; the port does not write them, so
-the JAX package cannot resume a run of the port.
+:func:`restore_train_state` reads such directories, from either
+package, and the port's earlier layout (``train_state.json``, step,
+count, optimizer settings, model config, placements and mesh axes, and
+``params.npz``, ``mu.npz``, ``nu.npz`` under the flax names of
+params.npz, each tensor whole).  orbax stores neither the model's config
+nor the optimizer's settings; they come from the abstract state.
 :func:`train_state_from_flax` and :func:`train_state_to_flax` carry a
 JAX ``TrainState`` (flax params plus optax's ``(ScaleByAdamState,
 EmptyState, EmptyState)``) across, moments with the kernels' transposes
@@ -46,7 +51,7 @@ import json
 import os
 import re
 from collections import namedtuple
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,30 +119,52 @@ def flax_params_to_state_dict(params: Any) -> Dict[str, torch.Tensor]:
     return sd
 
 
+#: per kernel kind, the flax dim of each dim of a torch weight (a
+#: ``Conv3d``'s ``(out, in, kd, kh, kw)``, a ``ConvTranspose3d``'s ``(in,
+#: out, kd, kh, kw)``, both to flax's ``(kd, kh, kw, in, out)``; the
+#: up-convolution's taps are also flipped)
+_FLAX_DIMS = {"conv": (4, 3, 0, 1, 2), "up": (3, 4, 0, 1, 2)}
+
+
+def _flax_names(names) -> Dict[str, Tuple[str, Optional[str]]]:
+    """``UNet3D`` parameter name -> (flax name, the kernel kind of a
+    weight that is transposed — ``"conv"`` or ``"up"`` — or ``None``)."""
+    n_levels = len({k.split(".")[1] for k in names
+                    if k.startswith("upsamplers.")})
+    inverse = {prefix: (flax_mod, kind) for flax_mod, (prefix, kind)
+               in _module_map(n_levels).items()}
+    out = {}
+    for name in names:
+        prefix, leaf = name.rsplit(".", 1)
+        if prefix not in inverse:
+            raise KeyError(f"unexpected UNet3D parameter {name!r}")
+        flax_mod, kind = inverse[prefix]
+        flax_leaf = ({"weight": "scale"} if kind == "norm"
+                     else {"weight": "kernel"}).get(leaf, leaf)
+        out[name] = (f"{flax_mod}/{flax_leaf}",
+                     kind if leaf == "weight" and kind in _FLAX_DIMS
+                     else None)
+    return out
+
+
+def _to_flax(t: torch.Tensor, kind: Optional[str]) -> np.ndarray:
+    """A tensor (or a shard of one) in flax's layout, float32 on the
+    host."""
+    a = t.detach().to(torch.float32).cpu().numpy()
+    if kind == "conv":
+        a = a.transpose(2, 3, 4, 1, 0)
+    elif kind == "up":
+        a = a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
+    return np.ascontiguousarray(a)
+
+
 def state_dict_to_flax_params(state_dict: Mapping[str, torch.Tensor]
                               ) -> Dict[str, np.ndarray]:
     """The inverse of :func:`flax_params_to_state_dict`: the flat
     ``params.npz`` names and float32 numpy arrays of a ``UNet3D``
     ``state_dict``."""
-    n_levels = len({k.split(".")[1] for k in state_dict
-                    if k.startswith("upsamplers.")})
-    inverse = {prefix: (flax_mod, kind) for flax_mod, (prefix, kind)
-               in _module_map(n_levels).items()}
-    flat: Dict[str, np.ndarray] = {}
-    for name, t in state_dict.items():
-        prefix, leaf = name.rsplit(".", 1)
-        if prefix not in inverse:
-            raise KeyError(f"unexpected UNet3D parameter {name!r}")
-        flax_mod, kind = inverse[prefix]
-        a = t.detach().to(torch.float32).cpu().numpy()
-        if leaf == "weight" and kind == "conv":
-            a = a.transpose(2, 3, 4, 1, 0)
-        elif leaf == "weight" and kind == "up":
-            a = a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
-        flax_leaf = ({"weight": "scale"} if kind == "norm"
-                     else {"weight": "kernel"}).get(leaf, leaf)
-        flat[f"{flax_mod}/{flax_leaf}"] = np.ascontiguousarray(a)
-    return flat
+    return {flax: _to_flax(state_dict[name], kind)
+            for name, (flax, kind) in _flax_names(state_dict).items()}
 
 
 def save_checkpoint(path: str, model_config: Dict[str, Any],
@@ -234,32 +261,125 @@ def train_state_to_flax(state) -> FlaxTrainState:
                           np.asarray(whole.step, np.int32))
 
 
-def _spec_to_json(spec):
-    return [list(a) if isinstance(a, tuple) else a for a in spec]
-
-
 def _spec_from_json(spec):
     return tuple(tuple(a) if isinstance(a, list) else a for a in spec)
 
 
-def save_train_state(path: str, state) -> None:
-    """Write a (possibly sharded) train state: ``train_state.json`` and
-    the three ``.npz`` files, each tensor whole (joined on the host)."""
-    from .train import unplace_state
+def _jax_device_str(device: torch.device) -> str:
+    """The name JAX gives the device of the same kind and index (what
+    orbax records of a ``SingleDeviceSharding``)."""
+    if device.type == "cuda":
+        return f"cuda:{device.index or 0}"
+    return f"TFRT_{device.type.upper()}_{device.index or 0}"
 
-    os.makedirs(path, exist_ok=True)
-    whole = unplace_state(state, device=torch.device("cpu"))
-    for name, tree in (("params", whole.params), ("mu", whole.opt_state.mu),
-                       ("nu", whole.opt_state.nu)):
-        np.savez(os.path.join(path, f"{name}.npz"),
-                 **state_dict_to_flax_params(tree))
-    write_config(os.path.join(path, "train_state.json"), {
-        "step": int(state.step), "count": int(state.opt_state.count),
-        "optimizer": dict(state.optimizer), "model": dict(state.config),
-        "mesh": state.mesh.shape if state.sharded else None,
-        "placements": ({k: _spec_to_json(p.spec)
-                        for k, p in state.placements.items()}
-                       if state.sharded else None)})
+
+def _orbax_leaves(state) -> List[Tuple[List[Tuple[str, int]], Any]]:
+    """The leaves of the JAX ``TrainState`` of ``state``, in orbax's
+    order, for :func:`~.orbax.write_tree`: an unsharded tensor as one
+    chunk; a sharded one as the chunks of its distinct shards, each cut
+    from its own tensor."""
+    from ..parallel.mesh import _coords, _split_index
+    from .orbax import (DICT_KEY, SEQUENCE_KEY, ArrayLeaf, named_sharding,
+                        single_device_sharding)
+
+    names = _flax_names(state.params)
+    mesh = state.mesh
+    if state.sharded:
+        coords = _coords(mesh)
+
+        def sharding(spec):
+            return named_sharding(mesh.devices.shape, mesh.axis_names, spec)
+    else:
+        coords = [None]
+        one = single_device_sharding(_jax_device_str(
+            next(iter(state.params.values())).device))
+
+        def sharding(spec):
+            return one
+
+    def scalar(value) -> ArrayLeaf:
+        return ArrayLeaf((), "<i4", (), [((), np.asarray(value, np.int32))],
+                         sharding([]))
+
+    def array(name: str, value) -> ArrayLeaf:
+        kind = names[name][1]
+        shards = value if state.sharded else [value]
+        ndim = shards[0].ndim
+        dims = _FLAX_DIMS.get(kind, tuple(range(ndim)))
+        axes = [state.placements[name].axes_of(d) if state.sharded else ()
+                for d in range(ndim)]
+        counts = [_split_index(mesh, coords[0], a)[1] for a in axes]
+        if any(s.shape != shards[0].shape for s in shards):
+            raise ValueError(f"{name}: shards of unequal shapes cannot be "
+                             "written as one zarr chunk grid")
+        chunks, shape, spec = [0] * ndim, [0] * ndim, [None] * ndim
+        for d in range(ndim):
+            chunks[dims[d]] = shards[0].shape[d]
+            shape[dims[d]] = shards[0].shape[d] * counts[d]
+            if axes[d]:
+                spec[dims[d]] = axes[d][0] if len(axes[d]) == 1 \
+                    else list(axes[d])
+        while spec and spec[-1] is None:
+            spec.pop()
+        # the up-convolution's flipped taps reverse their chunks' order
+        flipped = set(dims[2:]) if kind == "up" else set()
+        # orbax's replica-parallel write: the shards that hold the same
+        # piece split it along its first (flax) axis that they divide,
+        # each writing one slice
+        replicas = len(shards) // int(np.prod(counts))
+        split = next((a for a in range(ndim) if replicas > 1
+                      and chunks[a] % replicas == 0), None)
+        if split is None:
+            replicas = 1
+        else:
+            chunks[split] //= replicas
+
+        def pieces():
+            written: Dict[Tuple[int, ...], int] = {}
+            for coord, shard in zip(coords, shards):
+                index = [0] * ndim
+                for d in range(ndim):
+                    i = _split_index(mesh, coord, axes[d])[0]
+                    index[dims[d]] = counts[d] - 1 - i \
+                        if dims[d] in flipped else i
+                r = written.get(tuple(index), 0)
+                if r == replicas:
+                    continue
+                written[tuple(index)] = r + 1
+                if split is not None:
+                    d, n = dims.index(split), chunks[split]
+                    shard = shard.narrow(d, (replicas - 1 - r if split in
+                                             flipped else r) * n, n)
+                    index[split] = index[split] * replicas + r
+                yield tuple(index), _to_flax(shard, kind)
+
+        return ArrayLeaf(tuple(shape), "<f4", tuple(chunks), pieces(),
+                         sharding(spec))
+
+    def tree(path, sd):
+        order = sorted(sd, key=lambda n: tuple(names[n][0].split("/")))
+        return [(path + [(p, DICT_KEY) for p in names[n][0].split("/")],
+                 array(n, sd[n])) for n in order]
+
+    adam = [("1", SEQUENCE_KEY), ("0", SEQUENCE_KEY)]
+    return (tree([("0", SEQUENCE_KEY)], state.params)
+            + [(adam + [("count", DICT_KEY)], scalar(state.opt_state.count))]
+            + tree(adam + [("mu", DICT_KEY)], state.opt_state.mu)
+            + tree(adam + [("nu", DICT_KEY)], state.opt_state.nu)
+            + [([("1", SEQUENCE_KEY), (i, SEQUENCE_KEY)], None)
+               for i in ("1", "2")]
+            + [([("2", SEQUENCE_KEY)], scalar(state.step))])
+
+
+def save_train_state(path: str, state) -> None:
+    """Write a (possibly sharded) train state as the JAX package's
+    ``save_train_state`` does: an orbax checkpoint of its JAX
+    ``TrainState``, each shard written from its own tensor (a replicated
+    one once), into a temporary directory renamed into place (an
+    existing ``path`` is replaced)."""
+    from .orbax import write_tree
+
+    write_tree(path, _orbax_leaves(state))
 
 
 def _placed(path: str, trees: Dict[str, Dict[str, torch.Tensor]],
@@ -301,14 +421,14 @@ def restore_train_state(path: str, abstract_state):
     state of the same model): whole tensors on its tensors' devices, or,
     for a sharded one, cut onto its mesh.
 
-    ``path`` holds either the port's layout (written by
-    :func:`save_train_state`: ``train_state.json``; a sharded state is
-    cut by the saved placements) or the orbax checkpoint that the JAX
-    package's ``save_train_state`` writes (``_CHECKPOINT_METADATA``,
+    ``path`` holds either an orbax checkpoint, as both packages'
+    ``save_train_state`` write it (``_CHECKPOINT_METADATA``,
     ``_METADATA``; cut by ``abstract_state``'s placements, as orbax takes
-    its shardings from its abstract state).  orbax stores neither the
+    its shardings from its abstract state; orbax stores neither the
     model's config nor the optimizer's settings: they come from
-    ``abstract_state``."""
+    ``abstract_state``), or the port's earlier layout
+    (``train_state.json``; a sharded state is cut by the saved
+    placements)."""
     from ..parallel.mesh import Placement
 
     if os.path.exists(os.path.join(path, "train_state.json")):
@@ -332,9 +452,9 @@ def restore_train_state(path: str, abstract_state):
     if not any(os.path.exists(os.path.join(path, name))
                for name in ("_CHECKPOINT_METADATA", "_METADATA")):
         raise FileNotFoundError(
-            f"{path}: neither a train state of the port (train_state.json) "
-            "nor an orbax checkpoint of the JAX package "
-            "(_CHECKPOINT_METADATA, _METADATA)")
+            f"{path}: neither an orbax checkpoint (_CHECKPOINT_METADATA, "
+            "_METADATA) nor a train state in the port's earlier layout "
+            "(train_state.json)")
     from .orbax import read_train_state
 
     whole = train_state_from_flax(read_train_state(path), device="cpu")

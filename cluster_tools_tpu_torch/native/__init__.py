@@ -5,9 +5,9 @@ Replaces the reference's external pybind11 wheels for combinatorial work
 shared libraries are compiled with g++ the first time a process needs
 them (the C API is flat arrays; see ``core/build.py``): the solvers from
 ``src/solvers.cpp`` and the chunk formats' codecs (LZ4, BloscLZ,
-Zstandard, Snappy, LZF, the byte shuffle and bitshuffle, HDF5's lookup3
-and OCDBT's CRC-32C checksums; wrapped by ``core/codecs.py``) from
-``src/codecs.cpp``.  Without a compiler they raise: the package has no slower stand-in for them.
+Zstandard and a writer of its stored frames, Snappy, LZF, the byte
+shuffle and bitshuffle, HDF5's lookup3 and OCDBT's CRC-32C checksums;
+wrapped by ``core/codecs.py``) from ``src/codecs.cpp``.  Without a compiler they raise: the package has no slower stand-in for them.
 """
 
 from __future__ import annotations
@@ -98,13 +98,15 @@ def codecs() -> ctypes.CDLL:
                                        _CMD))
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         for name in ("lz4_compress", "lz4_decompress", "blosclz_decompress",
-                     "zstd_decompress", "snappy_decompress",
+                     "zstd_compress", "zstd_decompress", "snappy_decompress",
                      "lzf_decompress"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, i64, ptr, i64]
             fn.restype = i64
-        lib.lz4_bound.argtypes = [i64]
-        lib.lz4_bound.restype = i64
+        for name in ("lz4_bound", "zstd_bound"):
+            fn = getattr(lib, name)
+            fn.argtypes = [i64]
+            fn.restype = i64
         for name in ("byte_shuffle", "byte_unshuffle"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, i64, i64, ptr]

@@ -10,9 +10,11 @@
 // * the LZ4 block format: compress (greedy, one hash probe per position,
 //   LZ4's end-of-block rules) and decompress (bounds-checked);
 // * BloscLZ: decompress only (the format of c-blosc 1.x's blosclz);
-// * Zstandard frames (RFC 8878): decompress only, every block and literal
+// * Zstandard frames (RFC 8878): decompress every block and literal
 //   type, FSE and Huffman tables, repeat offsets, the XXH64 content
-//   checksum, skippable frames; no dictionaries;
+//   checksum, skippable frames (no dictionaries); compress into stored
+//   frames of RLE and raw blocks with the content size and checksum (the
+//   chunks of an orbax checkpoint, models/orbax.py);
 // * Snappy's raw format and liblzf's format (h5py's LZF filter):
 //   decompress only;
 // * byte shuffle and unshuffle (element byte j of every element together),
@@ -884,6 +886,60 @@ int64_t frame(const uint8_t* src, int64_t n, uint8_t*& op, uint8_t* oend) {
     return pos;
 }
 
+// the most bytes compress() writes for n plain bytes: magic, header
+// descriptor, window descriptor, content size, one header per block (an
+// empty input has one empty block), the bytes, the checksum
+int64_t compress_bound(int64_t n) {
+    return 4 + 1 + 1 + 8 + 3 * (n / kBlockMax + 1) + n + 4;
+}
+
+inline uint8_t* put_le(uint8_t* op, uint64_t v, int bytes) {
+    for (int i = 0; i < bytes; ++i) *op++ = uint8_t(v >> (8 * i));
+    return op;
+}
+
+// one frame of src[0:n] at dst: an RLE block where a block is one byte
+// repeated, a raw block otherwise, each at most kBlockMax bytes.  The
+// header states the content size; up to kBlockMax bytes the frame is a
+// single segment (its window is its content), beyond it the window is
+// kBlockMax, all a frame of raw and RLE blocks needs.  The frame ends in
+// the low 32 bits of the content's XXH64.
+int64_t compress(const uint8_t* src, int64_t n, uint8_t* dst) {
+    uint8_t* op = put_le(dst, 0xFD2FB528u, 4);
+    const bool single = n <= kBlockMax;
+    int fcs_flag, fcs_bytes;
+    uint64_t fcs = uint64_t(n);
+    if (single && n < 256) {
+        fcs_flag = 0, fcs_bytes = 1;
+    } else if (single && n < 65536 + 256) {
+        fcs_flag = 1, fcs_bytes = 2, fcs -= 256;
+    } else if (n <= int64_t(UINT32_MAX)) {
+        fcs_flag = 2, fcs_bytes = 4;
+    } else {
+        fcs_flag = 3, fcs_bytes = 8;
+    }
+    *op++ = uint8_t(fcs_flag << 6 | int(single) << 5 | 1 << 2);
+    if (!single) *op++ = uint8_t((17 - 10) << 3);  // window 2^17
+    op = put_le(op, fcs, fcs_bytes);
+    int64_t at = 0;
+    do {
+        const int64_t size = n - at < kBlockMax ? n - at : kBlockMax;
+        const uint8_t* p = src + at;
+        const bool rle = size > 1 && std::memcmp(p, p + 1, size_t(size - 1)) == 0;
+        at += size;
+        op = put_le(op, uint64_t(at == n) | uint64_t(rle ? 1 : 0) << 1 |
+                            uint64_t(size) << 3, 3);
+        if (rle) {
+            *op++ = p[0];
+        } else {
+            if (size) std::memcpy(op, p, size_t(size));
+            op += size;
+        }
+    } while (at < n);
+    op = put_le(op, uint32_t(xxh64(src, n)), 4);
+    return op - dst;
+}
+
 }  // namespace zstd
 
 inline uint64_t rd64(const uint8_t* p) {
@@ -938,6 +994,18 @@ int64_t zstd_decompress(const uint8_t* src, int64_t n, uint8_t* dst,
         return zstd::kCorrupt;
     }
     return op - dst;
+}
+
+// the most bytes zstd_compress writes for n plain bytes
+int64_t zstd_bound(int64_t n) { return zstd::compress_bound(n); }
+
+// one Zstandard frame of src[0:n] (RLE and raw blocks, the content size,
+// the XXH64 checksum) into dst[0:cap]; returns the bytes written, or -4
+// when cap is below zstd_bound(n)
+int64_t zstd_compress(const uint8_t* src, int64_t n, uint8_t* dst,
+                      int64_t cap) {
+    if (n < 0 || cap < zstd::compress_bound(n)) return zstd::kTooLarge;
+    return zstd::compress(src, n, dst);
 }
 
 // Snappy raw-format decompression of src[0:n] into dst[0:cap]; returns
