@@ -13,12 +13,20 @@ each run, then profiles one run with ``torch.profiler`` and prints the
 device time by operator, the min-plus kernel's share and the
 device-to-device copies' share.  With ``--roi`` the block is the resident
 server's: ``[50, 256, 256]`` with the same halo and
-``core.server.FusedROIPipeline``'s parameters.  Needs a card;
-exits non-zero without one.
+``core.server.FusedROIPipeline``'s parameters.  With ``--trace PATH`` the
+profiled run also records the port's telemetry spans (its ``dispatch``
+and ``sync-execute`` stages inside a ``block`` span), writes the
+profiler's Chrome trace to ``PATH`` and, beside it in
+``PATH.merged.json``, one trace that holds the profiler's events and the
+port's spans on the profiler's timeline
+(``core.telemetry.export_chrome_trace(..., profiler_trace=PATH)``), and
+prints how far the block span's start lies from the profiler's own range
+around it.  Needs a card; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -29,12 +37,19 @@ import time
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--roi", action="store_true")
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from cluster_tools_tpu_torch.core import telemetry
+    from cluster_tools_tpu_torch.core.runtime import stage
     from cluster_tools_tpu_torch.ops.edt import build_kernel
     from cluster_tools_tpu_torch.utils.synthetic import (as_uint8,
                                                          synthetic_instance)
@@ -47,7 +62,7 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     print(info, flush=True)
     build_kernel()
-    roi = "--roi" in sys.argv[1:]
+    roi = args.roi
     block = (50, 256, 256) if roi else (50, 512, 512)
     halo = (4, 32, 32)
     _, bnd = synthetic_instance(block, seed=0)
@@ -80,9 +95,26 @@ def main() -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    if args.trace:
+        telemetry.configure(enabled=True)
     with torch.profiler.profile(activities=acts) as prof:
-        resident_block(dev, (0, 0, 0), block, p)
-        torch.cuda.synchronize()
+        with torch.profiler.record_function("chip_profile.block"), \
+                telemetry.span("block:0", cat="block", block=0):
+            with stage("dispatch"):
+                resident_block(dev, (0, 0, 0), block, p)
+            with stage("sync-execute"):
+                torch.cuda.synchronize()
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+        merged = args.trace + ".merged.json"
+        telemetry.export_chrome_trace(merged, profiler_trace=args.trace)
+        with open(merged) as f:
+            events = json.load(f)["traceEvents"]
+        starts = {e.get("cat"): e["ts"] for e in events
+                  if e.get("name") in ("chip_profile.block", "block:0")}
+        print(f"merged trace {merged}: {len(events)} events; the block "
+              f"span starts {starts['block'] - starts['user_annotation']}"
+              " us after the profiler's range around it", flush=True)
     # device-side events only (kernels and copies): the operator rows
     # repeat their kernels' time
     cuda = torch.autograd.DeviceType.CUDA

@@ -22,6 +22,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from .runtime import stage
 from .storage import file_reader
 
 
@@ -88,12 +89,14 @@ def save_sub_graph(graph_path: str, scale: int, block_id: int,
     if edge_ids is not None:
         data["edge_ids"] = edge_ids.astype("int64")
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **data)
-    os.replace(tmp, path)
+    with stage("tmp-write"):
+        np.savez(tmp, **data)
+        os.replace(tmp, path)
 
 
 def load_sub_graph(graph_path: str, scale: int, block_id: int):
-    with np.load(sub_graph_path(graph_path, scale, block_id)) as d:
+    with stage("tmp-read"), \
+            np.load(sub_graph_path(graph_path, scale, block_id)) as d:
         return {k: d[k] for k in d.files}
 
 

@@ -60,11 +60,6 @@ _BYTES_ACC: Dict[str, float] = {}
 _COUNT_ACC: Dict[str, int] = {}
 _STAGE_LOCK = threading.Lock()
 
-#: stage-name prefixes attributed to the device path when computing the
-#: per-task device_busy_frac in the status JSON (canonical definition in
-#: core.telemetry).
-_DEVICE_STAGE_PREFIXES = telemetry.DEVICE_STAGE_PREFIXES
-
 
 def stage_add(name: str, seconds: float, count: int = 1) -> None:
     with _STAGE_LOCK:
@@ -616,7 +611,7 @@ class BoundedPool:
             fn(*args, **kwargs)
             return
         while len(self._pending) >= self.max_inflight:
-            self._pending.popleft().result()
+            self._wait(self._pending.popleft())
         if telemetry.enabled():
             fn = self._traced(fn)
         self._pending.append(self._pool.submit(fn, *args, **kwargs))
@@ -638,10 +633,20 @@ class BoundedPool:
 
         return run
 
+    @staticmethod
+    def _wait(fut) -> None:
+        """The task's result; the time this thread is blocked on a task
+        still running counts as ``pool-wait``."""
+        if fut.done():
+            fut.result()
+            return
+        with stage("pool-wait"):
+            fut.result()
+
     def drain(self) -> None:
         """Wait for every pending task, surfacing the first failure."""
         while self._pending:
-            self._pending.popleft().result()
+            self._wait(self._pending.popleft())
 
     def close(self) -> None:
         try:
@@ -1249,15 +1254,6 @@ class BlockTask(Task):
             for k, v in parse_stage_times(self.log_path(j),
                                           _COUNT_LINE).items():
                 stage_counts[k] = int(stage_counts.get(k, 0) + v)
-        # device-path share of the task wall: waits on device work plus
-        # host<->device transfers.  The complement is host compute + store
-        # IO + scheduling — where the card idles.
-        # Stages timed in overlapped pool workers use non-device names
-        # (fetch-*, host-*); the clamp below keeps the ratio meaningful
-        # even if overlapping device-prefixed stages ever double-count
-        device_time = sum(v for k, v in stages.items()
-                          if k.startswith(_DEVICE_STAGE_PREFIXES))
-        device_time = min(device_time, elapsed)
         status = {
             "task": self.name_with_id,
             "n_jobs": n_jobs,
@@ -1267,8 +1263,6 @@ class BlockTask(Task):
             "retries": self._retry_count,
             "stages": {k: round(v, 3) for k, v in sorted(
                 stages.items(), key=lambda kv: -kv[1])},
-            "device_busy_frac": (round(device_time / elapsed, 4)
-                                 if elapsed > 0 else None),
             "bytes_moved": {k: int(v) for k, v in sorted(
                 moved_bytes.items(), key=lambda kv: -kv[1])},
             # how many times each stage was entered: the dispatch-model

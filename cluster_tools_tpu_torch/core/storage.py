@@ -31,7 +31,11 @@ reader and writer (``core/hdf5.py``), Knossos pyramids (read only) through
 
 Missing chunks read as the fill value 0.  Chunk writes are atomic (a
 temporary file, then a rename); a write that does not cover a whole chunk
-is a read-modify-write under a per-chunk lock.
+is a read-modify-write under a per-chunk lock.  Each chunk's work is timed
+as runtime stages where it happens: ``store-encode`` and ``store-io``
+(bytes in, bytes written) on a write, ``store-io-read`` and
+``store-decode`` on a read, ``store-lock-wait`` for the per-chunk lock;
+they nest inside a caller's ``store-write`` / ``store-read``.
 
 Irregular ("varlen") per-block results — cut-edge lists, sub-solutions —
 use a dedicated :class:`VarlenDataset` of per-chunk flat files instead of
@@ -58,6 +62,7 @@ import numpy as np
 
 from . import blosc, codecs, hdf5
 from .config import write_config
+from .runtime import stage, stage_bytes
 
 _N5_DTYPES = ("uint8", "uint16", "uint32", "uint64", "int8", "int16",
               "int32", "int64", "float32", "float64")
@@ -414,11 +419,23 @@ class Dataset:
 
     def _load_chunk(self, chunk_id) -> Optional[np.ndarray]:
         """The chunk's elements at its stored size, or None if missing."""
-        raw = self._kv.get(self._chunk_key(chunk_id))
-        return None if raw is None else self._codec.decode(raw)
+        with stage("store-io-read"):
+            raw = self._kv.get(self._chunk_key(chunk_id))
+        if raw is None:
+            return None
+        stage_bytes("store-io-read", len(raw))
+        with stage("store-decode"):
+            data = self._codec.decode(raw)
+        stage_bytes("store-decode", data.nbytes)
+        return data
 
     def _store_chunk(self, chunk_id, full: np.ndarray) -> None:
-        self._kv.put(self._chunk_key(chunk_id), self._codec.encode(full))
+        with stage("store-encode"):
+            payload = self._codec.encode(full)
+        stage_bytes("store-encode", full.nbytes)
+        with stage("store-io"):
+            self._kv.put(self._chunk_key(chunk_id), payload)
+        stage_bytes("store-io", len(payload))
 
     def _empty_chunk(self) -> np.ndarray:
         fill = self._fill if self.flavor == "zarr" else 0
@@ -475,13 +492,18 @@ class Dataset:
                 full[dst] = arr[src]
                 self._store_chunk(cid, full)
                 continue
-            with _chunk_lock(f"{self._kv.path}/{self._chunk_key(cid)}"):
+            lock = _chunk_lock(f"{self._kv.path}/{self._chunk_key(cid)}")
+            with stage("store-lock-wait"):
+                lock.acquire()
+            try:
                 full = self._empty_chunk()
                 old = self._load_chunk(cid)
                 if old is not None:
                     full[tuple(slice(0, n) for n in old.shape)] = old
                 full[dst] = arr[src]
                 self._store_chunk(cid, full)
+            finally:
+                lock.release()
 
     # chunk-wise access (reference: z5 read_chunk/write_chunk,
     # multicut/solve_subproblems.py:206, multicut/reduce_problem.py:134)

@@ -43,10 +43,8 @@ from typing import Any, Callable, Dict, Iterable, List, NamedTuple, \
     Optional, Sequence, Tuple, Union
 
 #: stage-name prefixes attributed to the DEVICE PATH (device compute and
-#: host<->device transfers).  Shared with core/runtime.py's
-#: ``device_busy_frac`` accounting — one definition, so span-derived
-#: numbers and the accumulator never disagree about what counts as
-#: device time.
+#: host<->device transfers) by the span rollups below
+#: (:func:`device_busy_seconds`, :func:`busy_timeline`).
 DEVICE_STAGE_PREFIXES = ("sync-", "d2h-", "h2d-", "dispatch", "cap-retry",
                          "device-")
 
@@ -70,12 +68,22 @@ STAGE_REGISTRY = {
     "host-build", "host-compact", "host-decode", "host-densify",
     "host-fallback", "host-flood", "host-map", "host-reduce", "host-scan",
     "host-solve", "predict",
+    "host-pad",         # the fused pass's reflect-padded input volume
+    # the fused chain's host graph tasks, one stage per block or job
+    "host-assemble", "host-merge", "host-map-ids", "host-features",
+    "host-costs",
     # downloads overlapped with the next block's device work
     "fetch-dense", "fetch-rle",
     # loop-body counter of the hooking connected components
     "cc-bodies",
-    # store IO
+    # store IO at the call sites; inside them, per chunk (core/storage.py)
     "store-read", "store-write",
+    "store-encode", "store-io", "store-lock-wait", "store-decode",
+    "store-io-read",
+    # the .npz tables handed from task to task
+    "tmp-read", "tmp-write",
+    # a thread blocked on an unfinished BoundedPool task
+    "pool-wait",
     # interactive proofreading lane (edits/)
     "edit:resolve", "edit:solve", "edit:patch", "edit:write",
 }
@@ -164,6 +172,9 @@ class _Recorder:
         # threads spawned inside an attempt must inherit its id — that
         # is exactly the join key the exemplar-style linking needs)
         self.corr: List[str] = []
+        # (perf_counter s, Unix epoch ns) read back to back when the
+        # recorder is enabled: places spans on other tools' timelines
+        self.anchor: Optional[Tuple[float, int]] = None
 
     def stack(self) -> List[int]:
         st = getattr(self._tls, "stack", None)
@@ -200,6 +211,31 @@ def configure(enabled: Optional[bool] = None,
             _REC.clock = clock
         if enabled is not None:
             _REC.enabled = bool(enabled)
+        if _REC.enabled and _REC.anchor is None:
+            _REC.anchor = _take_anchor()
+
+
+def _take_anchor(tries: int = 5) -> Tuple[float, int]:
+    """``time.perf_counter()`` (the recorder's own clock) and
+    ``time.time_ns()`` read back to back: of ``tries`` reads, the one
+    whose two ``perf_counter`` reads lie closest, at their middle."""
+    best = None
+    for _ in range(tries):
+        a = time.perf_counter()
+        unix_ns = time.time_ns()
+        b = time.perf_counter()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) / 2, unix_ns)
+    return best[1], best[2]
+
+
+def clock_anchor() -> Tuple[float, int]:
+    """(``perf_counter`` seconds, Unix epoch nanoseconds) of one instant,
+    taken when the recorder was enabled (now, if it has not been)."""
+    with _REC.lock:
+        if _REC.anchor is None:
+            _REC.anchor = _take_anchor()
+        return _REC.anchor
 
 
 def reset() -> None:
@@ -215,6 +251,7 @@ def reset() -> None:
         _REC._next_sid = itertools.count(1)
         _REC._tls = threading.local()
         _REC.corr = []
+        _REC.anchor = None
     with _FLIGHT_LOCK:
         _FLIGHT_COUNT = 0
 
@@ -584,9 +621,8 @@ def _device_stage_spans(spans: Sequence[Span]) -> List[Span]:
 
 
 def device_busy_seconds(spans: Optional[Sequence[Span]] = None) -> float:
-    """SUM of device-path stage span durations — the same semantics as
-    the ``device_busy_frac`` accumulator in task status JSONs (sum of
-    device-prefixed stage seconds), so the two cross-check directly."""
+    """SUM of device-path stage span durations (host-clock waits on and
+    transfers to and from the device, not the device's own time)."""
     if spans is None:
         spans = spans_snapshot()
     return float(sum(s.t1 - s.t0 for s in _device_stage_spans(spans)))
@@ -609,7 +645,7 @@ def busy_timeline(spans: Optional[Sequence[Span]] = None,
 def device_busy_fraction(wall: Optional[float] = None,
                          spans: Optional[Sequence[Span]] = None
                          ) -> Optional[float]:
-    """Device-busy seconds / wall (clamped to 1.0, like the accumulator).
+    """Device-busy seconds / wall (clamped to 1.0).
     ``wall`` defaults to the trace window (earliest t0 to latest t1)."""
     if spans is None:
         spans = spans_snapshot()
@@ -768,8 +804,12 @@ def _process_events(spans: Sequence[Span], pid: int, base: float,
     return events
 
 
-def _write_trace_events(path: str, events: List[Dict[str, Any]]) -> int:
-    payload = {"traceEvents": events, "displayTimeUnit": "ms"}
+def _write_trace_events(path: str, events: List[Dict[str, Any]],
+                        payload: Optional[Dict[str, Any]] = None) -> int:
+    """Write ``events`` atomically as the ``traceEvents`` of ``payload``
+    (a file's other top-level keys; by default only the display unit)."""
+    payload = dict(payload or {"displayTimeUnit": "ms"},
+                   traceEvents=events)
     tmp = path + ".tmp%d" % os.getpid()
     with open(tmp, "w") as f:
         json.dump(payload, f, sort_keys=True, separators=(",", ":"),
@@ -779,7 +819,8 @@ def _write_trace_events(path: str, events: List[Dict[str, Any]]) -> int:
 
 
 def export_chrome_trace(path: str,
-                        spans: Optional[Sequence[Span]] = None) -> int:
+                        spans: Optional[Sequence[Span]] = None,
+                        profiler_trace: Optional[str] = None) -> int:
     """Write the recorded spans as Chrome trace-event JSON (the
     ``traceEvents`` object format, complete 'X' events with
     microsecond ``ts``/``dur``, 'C' counter events for memory samples)
@@ -788,12 +829,34 @@ def export_chrome_trace(path: str,
     Determinism: timestamps are rebased to the earliest span, thread
     ids are remapped to dense integers in first-recorded order, and
     ``pid`` is pinned — identical recordings (fixed clock, one thread)
-    export byte-identical files.  Written atomically."""
+    export byte-identical files.  Written atomically.
+
+    ``profiler_trace`` is the path of a ``torch.profiler`` trace
+    (``prof.export_chrome_trace``): the file written then holds that
+    trace's events and keys, and the spans as a process of their own on
+    its timeline, so each device gap lies under the host stage open
+    then.  A profiler event's ``ts`` is Unix-epoch microseconds less the
+    file's ``baseTimeNanoseconds``; the spans get there through
+    :func:`clock_anchor`."""
     if spans is None:
         spans = spans_snapshot()
-    base = min((s.t0 for s in spans), default=0.0)
-    events = _process_events(spans, 1, base, "cluster_tools_tpu_torch")
-    return _write_trace_events(path, events)
+    if profiler_trace is None:
+        base = min((s.t0 for s in spans), default=0.0)
+        events = _process_events(spans, 1, base, "cluster_tools_tpu_torch")
+        return _write_trace_events(path, events)
+    with open(profiler_trace) as f:
+        doc = json.load(f)
+    prof_events = list(doc.pop("traceEvents", None) or [])
+    perf0, unix_ns = clock_anchor()
+    # the recorder clock's reading at the profiler file's ts 0
+    base = perf0 - (unix_ns - int(doc.get("baseTimeNanoseconds", 0))) / 1e9
+    pids = [e["pid"] for e in prof_events
+            if isinstance(e.get("pid"), int) and
+            not isinstance(e.get("pid"), bool)]
+    pid = max(pids, default=0) + 1
+    events = prof_events + _process_events(spans, pid, base,
+                                           "cluster_tools_tpu_torch")
+    return _write_trace_events(path, events, doc)
 
 
 def _span_to_dict(s: Span) -> Dict[str, Any]:

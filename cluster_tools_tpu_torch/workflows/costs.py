@@ -16,7 +16,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from ..core import graph as g
-from ..core.runtime import BlockTask
+from ..core.runtime import BlockTask, stage
 from ..core.storage import file_reader
 from ..core.workflow import Task
 
@@ -115,7 +115,13 @@ class ProbsToCosts(BlockTask):
 
     @classmethod
     def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
-        cfg = job_config["config"]
+        with stage("host-costs"):
+            n_costs = cls._write_costs(job_config["config"])
+        log_fn(f"wrote {n_costs} costs")
+
+    @staticmethod
+    def _write_costs(cfg: Dict[str, Any]) -> int:
+        """Read the edge features, write the edge costs; their count."""
         with file_reader(cfg["input_path"], "r") as f:
             feats = f[cfg["input_key"]][:]
         # 2-D: the edge-feature table (col 0 = mean boundary prob, last =
@@ -161,7 +167,7 @@ class ProbsToCosts(BlockTask):
                                    chunks=(max(len(costs), 1),),
                                    dtype="float32")
             ds[:] = costs.astype("float32")
-        log_fn(f"wrote {len(costs)} costs")
+        return len(costs)
 
 
 class EdgeCostsWorkflow(Task):

@@ -331,15 +331,17 @@ class MergeEdgeFeatures(BlockTask):
                   for e0 in job_config["block_list"]]
         partials = {e0: [] for e0, _ in ranges}
         for path in block_files:
-            with np.load(path) as d:
+            with stage("tmp-read"), np.load(path) as d:
                 ids, feats = d["edge_ids"], d["features"]
-            for e0, e1 in ranges:
-                sel = (ids >= e0) & (ids < e1)
-                if sel.any():
-                    partials[e0].append((ids[sel] - e0, feats[sel]))
+            with stage("host-features"):
+                for e0, e1 in ranges:
+                    sel = (ids >= e0) & (ids < e1)
+                    if sel.any():
+                        partials[e0].append((ids[sel] - e0, feats[sel]))
         for e0, e1 in ranges:
-            merged = merge_feature_blocks(partials[e0], e1 - e0, n_feats)
-            ds[slice(e0, e1), slice(0, n_feats)] = merged
+            with stage("host-features"):
+                merged = merge_feature_blocks(partials[e0], e1 - e0, n_feats)
+                ds[slice(e0, e1), slice(0, n_feats)] = merged
             log_fn(f"processed block {e0}")
 
 

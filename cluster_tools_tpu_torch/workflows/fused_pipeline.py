@@ -64,13 +64,19 @@ from ..core import graph as g
 from ..core.blocking import Blocking
 from ..core.config import write_config
 from ..core.device import resolve_device, task_device
-from ..core.runtime import BlockTask
+from ..core.runtime import BlockTask, stage
 from ..core.storage import file_reader
 from ..core.workflow import FileTarget, Task
 
 
 def _staged_path(tmp_folder: str, block_id: int) -> str:
     return os.path.join(tmp_folder, f"fused_feats_raw_block_{block_id}.npz")
+
+
+def _save_staged(path: str, **arrays) -> None:
+    """Write a table handed to a later task (timed as ``tmp-write``)."""
+    with stage("tmp-write"):
+        np.savez(path, **arrays)
 
 
 # ---------------------------------------------------------------------------
@@ -832,30 +838,31 @@ class FusedSegmentationBlocks(BlockTask):
         with stage("store-read"):
             vol = ds_in[...]
         stage_bytes("store-read", vol.nbytes)
-        mx = float(vol.max()) if vol.size else 0.0
-        is_u8 = (vol.dtype == np.uint8 and mx > 1
-                 and not cfg.get("invert_inputs", False))
-        # record the volume-level normalization so face assembly in OTHER
-        # processes puts face samples on the same scale as the interior
-        # samples (a thin plane's own max is not the volume's)
-        scale = 255.0 if (mx > 1.0 and mx <= 255) else (mx if mx > 1.0
-                                                        else 1.0)
-        write_config(os.path.join(tmp_folder, "fused_input_scale.json"),
-                     {"scale": scale,
-                      "invert": bool(cfg.get("invert_inputs", False))})
         from .watershed import _normalize_input, reflect_indices
 
-        if not is_u8:
-            vol = _normalize_input(vol.astype("float32"), cfg).astype(
-                "float32")
-        _raw_cache_put((os.path.abspath(cfg["input_path"]),
-                        cfg["input_key"]), vol, is_u8)
+        with stage("host-pad"):
+            mx = float(vol.max()) if vol.size else 0.0
+            is_u8 = (vol.dtype == np.uint8 and mx > 1
+                     and not cfg.get("invert_inputs", False))
+            # record the volume-level normalization so face assembly in
+            # OTHER processes puts face samples on the same scale as the
+            # interior samples (a thin plane's own max is not the volume's)
+            scale = 255.0 if (mx > 1.0 and mx <= 255) else (mx if mx > 1.0
+                                                            else 1.0)
+            write_config(os.path.join(tmp_folder, "fused_input_scale.json"),
+                         {"scale": scale,
+                          "invert": bool(cfg.get("invert_inputs", False))})
+            if not is_u8:
+                vol = _normalize_input(vol.astype("float32"), cfg).astype(
+                    "float32")
+            _raw_cache_put((os.path.abspath(cfg["input_path"]),
+                            cfg["input_key"]), vol, is_u8)
 
-        gdims = [-(-s // b) for s, b in zip(shape, bs)]
-        # grid-aligned + halo padding by VOLUME-level reflection
-        volp = vol[np.ix_(*[
-            reflect_indices(-h, g_ * b + h, s)
-            for h, g_, b, s in zip(halo, gdims, bs, shape)])]
+            gdims = [-(-s // b) for s, b in zip(shape, bs)]
+            # grid-aligned + halo padding by VOLUME-level reflection
+            volp = vol[np.ix_(*[
+                reflect_indices(-h, g_ * b + h, s)
+                for h, g_, b, s in zip(halo, gdims, bs, shape)])]
         with stage("h2d-upload"):
             vol_dev = torch.from_numpy(np.ascontiguousarray(volp)).to(device)
             if device.type == "cuda":
@@ -885,15 +892,17 @@ class FusedSegmentationBlocks(BlockTask):
             """Per-block host tail, safe to run from a pool worker: the
             offset chain was already advanced by the (sequential) drain,
             and blocks write disjoint chunk-aligned regions."""
-            local = dense_np[real]
-            local = local.astype("uint16" if k_i < 65536 else "uint32")
-            _fragment_cache_put(ws_cache_key + (bid,), local, off, block.bb)
-            out = local.astype("uint64")
-            out[out > 0] += off
+            with stage("host-map"):
+                local = dense_np[real]
+                local = local.astype("uint16" if k_i < 65536 else "uint32")
+                _fragment_cache_put(ws_cache_key + (bid,), local, off,
+                                    block.bb)
+                out = local.astype("uint64")
+                out[out > 0] += off
             _write(block.bb, out)
-            np.savez(_staged_path(tmp_folder, bid),
-                     uv=uv_np.astype("uint64") + off, feats=feats_np,
-                     k=np.int64(k_i), offset=np.uint64(off))
+            _save_staged(_staged_path(tmp_folder, bid),
+                         uv=uv_np.astype("uint64") + off, feats=feats_np,
+                         k=np.int64(k_i), offset=np.uint64(off))
             log_fn(f"processed block {bid}")
 
         def _fetch_and_complete(bid, block, real, off, k_i, n_rle, rle_ok,
@@ -1138,16 +1147,20 @@ class FusedSegmentationBlocks(BlockTask):
             block = blocking.get_block(sid)
             off, k_i = int(offs[sid]), int(ks[sid])
             sl = lab[block.bb]
-            local = np.where(sl > 0, sl.astype("int64") - off, 0)
-            local = local.astype("uint16" if k_i < 65536 else "uint32")
-            _fragment_cache_put(ws_cache_key + (sid,), local, off, block.bb)
-            pool.submit(_write, block.bb, sl.astype("uint64"))
+            with stage("host-map"):
+                local = np.where(sl > 0, sl.astype("int64") - off, 0)
+                local = local.astype("uint16" if k_i < 65536 else "uint32")
+                _fragment_cache_put(ws_cache_key + (sid,), local, off,
+                                    block.bb)
+                out = sl.astype("uint64")
+            pool.submit(_write, block.bb, out)
             uv_np = uv_all[sid].astype("uint64")
             feats_np = feats_all[sid]
             order = np.lexsort((uv_np[:, 1], uv_np[:, 0]))
             uv_np, feats_np = uv_np[order], feats_np[order]
-            np.savez(_staged_path(tmp_folder, sid), uv=uv_np,
-                     feats=feats_np, k=np.int64(k_i), offset=np.uint64(off))
+            _save_staged(_staged_path(tmp_folder, sid), uv=uv_np,
+                         feats=feats_np, k=np.int64(k_i),
+                         offset=np.uint64(off))
             # the shard tables are already COMPLETE sub-graphs (the device
             # added the cross-shard faces): save them now — there is no
             # FusedFaceAssembly pass on this path
@@ -1155,8 +1168,8 @@ class FusedSegmentationBlocks(BlockTask):
             if len(uv_np):
                 nodes = np.unique(np.concatenate([nodes, uv_np.ravel()]))
             g.save_sub_graph(cfg["problem_path"], 0, sid, nodes, uv_np)
-            np.savez(_staged_path(tmp_folder, sid) + ".full.npz",
-                     uv=uv_np, feats=feats_np)
+            _save_staged(_staged_path(tmp_folder, sid) + ".full.npz",
+                         uv=uv_np, feats=feats_np)
             max_ids[sid] = k_i
             log_fn(f"processed block {sid}")
 
@@ -1250,9 +1263,9 @@ class FusedSegmentationBlocks(BlockTask):
             # crop the uniform inner frame to the real (clipped) block
             real = tuple(slice(0, b.stop - b.start) for b in block.bb)
             cls._write_dense(ds_out, block, dense_np[real], off)
-            np.savez(_staged_path(tmp_folder, bid),
-                     uv=uv_np.astype("uint64") + off, feats=feats_np,
-                     k=np.int64(k_i), offset=np.uint64(off))
+            _save_staged(_staged_path(tmp_folder, bid),
+                         uv=uv_np.astype("uint64") + off, feats=feats_np,
+                         k=np.int64(k_i), offset=np.uint64(off))
             max_ids[bid] = k_i
             state["offset"] = off + np.uint64(k_i)
             log_fn(f"processed block {bid}")
@@ -1300,10 +1313,10 @@ class FusedSegmentationBlocks(BlockTask):
             if overflow > 0:
                 raise RuntimeError(
                     f"block {bid}: edge capacity exceeded (e_max={e_max})")
-            np.savez(_staged_path(tmp_folder, bid),
-                     uv=tbl[1:1 + n_r, :2].astype("uint64") + off,
-                     feats=tbl[1:1 + n_r, 2:], k=np.int64(k_i),
-                     offset=np.uint64(off))
+            _save_staged(_staged_path(tmp_folder, bid),
+                         uv=tbl[1:1 + n_r, :2].astype("uint64") + off,
+                         feats=tbl[1:1 + n_r, 2:], k=np.int64(k_i),
+                         offset=np.uint64(off))
             log_fn(f"processed block {bid}")
 
         def submit(entry):
@@ -1396,7 +1409,6 @@ class FusedFaceAssembly(BlockTask):
     @classmethod
     def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
         from ..core.runtime import stage
-        from ..ops.rag import segmented_stats, unique_pairs
         from .watershed import _normalize_input, _read_input
 
         cfg = job_config["config"]
@@ -1456,62 +1468,76 @@ class FusedFaceAssembly(BlockTask):
                                     cfg).astype("float64").ravel()
 
         for bid in job_config["block_list"]:
-            with np.load(_staged_path(cfg["fused_tmp"], bid)) as d:
+            with stage("tmp-read"), \
+                    np.load(_staged_path(cfg["fused_tmp"], bid)) as d:
                 uv_int = d["uv"]
                 feats_int = d["feats"]
                 k = int(d["k"])
                 off = int(d["offset"])
-            block = blocking.get_block(bid)
-            face_u, face_v, face_x = [], [], []
-            extra_nodes = []  # +1-halo labels: the classic sub-graph node
-            #                   set includes them (reference reads the
-            #                   block with increaseRoi)
-            for axis in range(blocking.ndim):
-                nb = blocking.neighbor_id(bid, axis, +1)
-                if nb is None:
-                    continue
-                hi = block.end[axis]
-                bb_lo = tuple(
-                    slice(hi - 1, hi) if d_ == axis else s
-                    for d_, s in enumerate(block.bb))
-                bb_hi = tuple(
-                    slice(hi, hi + 1) if d_ == axis else s
-                    for d_, s in enumerate(block.bb))
-                la = ws_plane(bb_lo, bid)
-                lb = ws_plane(bb_hi, nb)
-                extra_nodes.append(np.unique(lb[lb > 0]))
-                xa = input_plane(bb_lo)
-                xb = input_plane(bb_hi)
-                fg = (la > 0) & (lb > 0) & (la != lb)
-                if not fg.any():
-                    continue
-                u = np.minimum(la[fg], lb[fg])
-                v = np.maximum(la[fg], lb[fg])
-                # two samples per face pair (nifty gridRag convention)
-                face_u.extend([u, u])
-                face_v.extend([v, v])
-                face_x.extend([xa[fg], xb[fg]])
-            if face_u:
-                fu = np.concatenate(face_u)
-                fv = np.concatenate(face_v)
-                fx = np.concatenate(face_x)
-                uniq, inv = unique_pairs(fu, fv)
-                feats_face = segmented_stats(inv, fx, len(uniq))
-                uv_all = np.concatenate([uv_int, uniq])
-                feats_all = np.concatenate([feats_int, feats_face])
-            else:
-                uv_all, feats_all = uv_int, feats_int
-            order = np.lexsort((uv_all[:, 1], uv_all[:, 0]))
-            uv_all, feats_all = uv_all[order], feats_all[order]
-            nodes = np.arange(off + 1, off + k + 1, dtype="uint64")
-            if extra_nodes:
-                nodes = np.unique(np.concatenate(
-                    [nodes] + [e.astype("uint64") for e in extra_nodes]))
+            with stage("host-assemble"):
+                uv_all, feats_all, nodes = _assemble_faces(
+                    blocking, bid, ws_plane, input_plane, uv_int,
+                    feats_int, k, off)
             g.save_sub_graph(cfg["problem_path"], 0, bid, nodes,
                              uv_all.astype("uint64"))
-            np.savez(_staged_path(cfg["fused_tmp"], bid) + ".full.npz",
-                     uv=uv_all.astype("uint64"), feats=feats_all)
+            _save_staged(_staged_path(cfg["fused_tmp"], bid) + ".full.npz",
+                         uv=uv_all.astype("uint64"), feats=feats_all)
             log_fn(f"processed block {bid}")
+
+
+def _assemble_faces(blocking, bid, ws_plane, input_plane, uv_int,
+                    feats_int, k, off):
+    """One block's complete sub-graph: its interior (uv, feats) tables
+    plus the edges of its upper faces, sorted, and its node set."""
+    from ..ops.rag import segmented_stats, unique_pairs
+
+    block = blocking.get_block(bid)
+    face_u, face_v, face_x = [], [], []
+    extra_nodes = []  # +1-halo labels: the classic sub-graph node
+    #                   set includes them (reference reads the
+    #                   block with increaseRoi)
+    for axis in range(blocking.ndim):
+        nb = blocking.neighbor_id(bid, axis, +1)
+        if nb is None:
+            continue
+        hi = block.end[axis]
+        bb_lo = tuple(
+            slice(hi - 1, hi) if d_ == axis else s
+            for d_, s in enumerate(block.bb))
+        bb_hi = tuple(
+            slice(hi, hi + 1) if d_ == axis else s
+            for d_, s in enumerate(block.bb))
+        la = ws_plane(bb_lo, bid)
+        lb = ws_plane(bb_hi, nb)
+        extra_nodes.append(np.unique(lb[lb > 0]))
+        xa = input_plane(bb_lo)
+        xb = input_plane(bb_hi)
+        fg = (la > 0) & (lb > 0) & (la != lb)
+        if not fg.any():
+            continue
+        u = np.minimum(la[fg], lb[fg])
+        v = np.maximum(la[fg], lb[fg])
+        # two samples per face pair (nifty gridRag convention)
+        face_u.extend([u, u])
+        face_v.extend([v, v])
+        face_x.extend([xa[fg], xb[fg]])
+    if face_u:
+        fu = np.concatenate(face_u)
+        fv = np.concatenate(face_v)
+        fx = np.concatenate(face_x)
+        uniq, inv = unique_pairs(fu, fv)
+        feats_face = segmented_stats(inv, fx, len(uniq))
+        uv_all = np.concatenate([uv_int, uniq])
+        feats_all = np.concatenate([feats_int, feats_face])
+    else:
+        uv_all, feats_all = uv_int, feats_int
+    order = np.lexsort((uv_all[:, 1], uv_all[:, 0]))
+    uv_all, feats_all = uv_all[order], feats_all[order]
+    nodes = np.arange(off + 1, off + k + 1, dtype="uint64")
+    if extra_nodes:
+        nodes = np.unique(np.concatenate(
+            [nodes] + [e.astype("uint64") for e in extra_nodes]))
+    return uv_all, feats_all, nodes
 
 
 class FeatureTablesToIds(BlockTask):
@@ -1547,17 +1573,19 @@ class FeatureTablesToIds(BlockTask):
             _block_feature_path(cfg["problem_path"], 0)), exist_ok=True)
         for bid in job_config["block_list"]:
             data = g.load_sub_graph(cfg["problem_path"], 0, bid)
-            with np.load(_staged_path(cfg["fused_tmp"], bid)
-                         + ".full.npz") as d:
+            with stage("tmp-read"), \
+                    np.load(_staged_path(cfg["fused_tmp"], bid)
+                            + ".full.npz") as d:
                 uv = d["uv"]
                 feats = d["feats"]
-            local = g.find_edge_ids(data["edges"], uv)
-            out = np.zeros((len(data["edges"]), feats.shape[1] if
-                            len(feats) else 10), "float64")
-            out[local] = feats
-            np.savez(_block_feature_path(cfg["problem_path"], bid),
-                     edge_ids=data["edge_ids"].astype("int64"),
-                     features=out)
+            with stage("host-map-ids"):
+                local = g.find_edge_ids(data["edges"], uv)
+                out = np.zeros((len(data["edges"]), feats.shape[1] if
+                                len(feats) else 10), "float64")
+                out[local] = feats
+            _save_staged(_block_feature_path(cfg["problem_path"], bid),
+                         edge_ids=data["edge_ids"].astype("int64"),
+                         features=out)
             log_fn(f"processed block {bid}")
 
 

@@ -200,19 +200,23 @@ class MergeSubGraphs(BlockTask):
                 data = g.load_sub_graph(graph_path, read_scale, bid)
                 edge_lists.append(data["edges"])
                 node_lists.append(data["nodes"])
-            edges = g.merge_edge_lists(edge_lists)
-            nodes = (np.unique(np.concatenate([n for n in node_lists if len(n)]))
-                     if any(len(n) for n in node_lists) else np.zeros(0, "uint64"))
-            g.save_graph(graph_path, cfg["output_key"], nodes, edges, shape,
-                         ignore_label=bool(cfg.get("ignore_label", True)))
-            # record the decomposition the sub-graphs were built on: the
-            # problem container is self-describing, so the solver stack
-            # (SolveSubproblems/ReduceProblem) iterates the SAME grid even
-            # when it differs from the global block shape (mesh-resident
-            # slabs)
-            with file_reader(graph_path) as f:
-                f[cfg["output_key"]].attrs["sub_graph_block_shape"] = \
-                    list(base_bs)
+            with stage("host-merge"):
+                edges = g.merge_edge_lists(edge_lists)
+                nodes = (np.unique(np.concatenate(
+                    [n for n in node_lists if len(n)]))
+                    if any(len(n) for n in node_lists)
+                    else np.zeros(0, "uint64"))
+                g.save_graph(graph_path, cfg["output_key"], nodes, edges,
+                             shape,
+                             ignore_label=bool(cfg.get("ignore_label", True)))
+                # record the decomposition the sub-graphs were built on:
+                # the problem container is self-describing, so the solver
+                # stack (SolveSubproblems/ReduceProblem) iterates the SAME
+                # grid even when it differs from the global block shape
+                # (mesh-resident slabs)
+                with file_reader(graph_path) as f:
+                    f[cfg["output_key"]].attrs["sub_graph_block_shape"] = \
+                        list(base_bs)
             log_fn(f"global graph: {len(nodes)} nodes, {len(edges)} edges")
             return
 
@@ -226,9 +230,12 @@ class MergeSubGraphs(BlockTask):
                 data = g.load_sub_graph(graph_path, scale - 1, cid)
                 edge_lists.append(data["edges"])
                 node_lists.append(data["nodes"])
-            edges = g.merge_edge_lists(edge_lists)
-            nodes = (np.unique(np.concatenate([n for n in node_lists if len(n)]))
-                     if any(len(n) for n in node_lists) else np.zeros(0, "uint64"))
+            with stage("host-merge"):
+                edges = g.merge_edge_lists(edge_lists)
+                nodes = (np.unique(np.concatenate(
+                    [n for n in node_lists if len(n)]))
+                    if any(len(n) for n in node_lists)
+                    else np.zeros(0, "uint64"))
             g.save_sub_graph(graph_path, scale, block_id, nodes, edges)
             log_fn(f"processed block {block_id}")
 
@@ -263,10 +270,13 @@ class MapEdgeIds(BlockTask):
     @classmethod
     def process_job(cls, job_id: int, job_config: Dict[str, Any], log_fn):
         cfg = job_config["config"]
-        _, global_edges, _ = g.load_graph(cfg["graph_path"], cfg["graph_key"])
+        with stage("store-read"):
+            _, global_edges, _ = g.load_graph(cfg["graph_path"],
+                                              cfg["graph_key"])
         for block_id in job_config["block_list"]:
             data = g.load_sub_graph(cfg["graph_path"], cfg["scale"], block_id)
-            edge_ids = g.find_edge_ids(global_edges, data["edges"])
+            with stage("host-map-ids"):
+                edge_ids = g.find_edge_ids(global_edges, data["edges"])
             g.save_sub_graph(cfg["graph_path"], cfg["scale"], block_id,
                              data["nodes"], data["edges"], edge_ids)
             log_fn(f"processed block {block_id}")

@@ -28,7 +28,7 @@ import numpy as np
 
 from ..core import graph as g
 from ..core.blocking import Blocking
-from ..core.runtime import BlockTask
+from ..core.runtime import BlockTask, stage
 from ..core.solvers import key_to_agglomerator
 from ..core.storage import file_reader
 from ..core.workflow import Task
@@ -169,8 +169,6 @@ class SolveSubproblems(BlockTask):
                      uv_dense: np.ndarray, costs: np.ndarray) -> np.ndarray:
         """Hook: solve one block's subproblem -> labeling over the block's
         local (unique-compacted) nodes' cut mask; returns inner cut ids."""
-        from ..core.runtime import stage
-
         agglomerator = key_to_agglomerator(
             cfg.get("agglomerator", "kernighan-lin"))
         sub_uv = uv_dense[inner]
@@ -189,8 +187,10 @@ class SolveSubproblems(BlockTask):
         problem_path = cfg["problem_path"]
         scale = int(cfg["scale"])
 
-        uv_dense, n_nodes, s0_nodes = _load_scale_graph(problem_path, scale)
-        costs = _load_costs(problem_path, scale)
+        with stage("store-read"):
+            uv_dense, n_nodes, s0_nodes = _load_scale_graph(problem_path,
+                                                            scale)
+            costs = _load_costs(problem_path, scale)
         graph = g.Graph(np.arange(n_nodes, dtype="uint64"),
                         uv_dense.astype("uint64"))
         ctx = cls._job_context(cfg, s0_nodes)
@@ -221,9 +221,10 @@ class SolveSubproblems(BlockTask):
                                        costs[inner])
             path = _sub_result_path(problem_path, scale, block_id)
             tmp = path + ".tmp.npz"
-            np.savez(tmp, cut_edge_ids=cut_ids.astype("int64"),
-                     signature=np.asarray(sig))
-            os.replace(tmp, path)
+            with stage("tmp-write"):
+                np.savez(tmp, cut_edge_ids=cut_ids.astype("int64"),
+                         signature=np.asarray(sig))
+                os.replace(tmp, path)
             log_fn(f"processed block {block_id}")
 
 
@@ -263,8 +264,10 @@ class ReduceProblem(BlockTask):
         shape = cfg["shape"]
         base_bs = cfg["block_shape"]
 
-        uv_dense, n_nodes, s0_nodes = _load_scale_graph(problem_path, scale)
-        costs = _load_costs(problem_path, scale)
+        with stage("store-read"):
+            uv_dense, n_nodes, s0_nodes = _load_scale_graph(problem_path,
+                                                            scale)
+            costs = _load_costs(problem_path, scale)
 
         # gather cut edges from all blocks at this scale; a block whose
         # sub_result is missing would silently contribute "merge everything"
@@ -281,7 +284,7 @@ class ReduceProblem(BlockTask):
             if not os.path.exists(path):
                 missing.append(bid)
                 continue
-            with np.load(path) as d:
+            with stage("tmp-read"), np.load(path) as d:
                 cut_lists.append(d["cut_edge_ids"])
         if missing:
             raise RuntimeError(
@@ -294,8 +297,6 @@ class ReduceProblem(BlockTask):
         log_fn(f"merging {int(merge_mask.sum())} / {len(uv_dense)} edges")
 
         # union-find merge of uncut edges -> consecutive node labeling
-        from ..core.runtime import stage
-
         with stage("host-reduce"):
             roots = native.ufd_merge_pairs(n_nodes, uv_dense[merge_mask])
         _, node_labeling = np.unique(roots, return_inverse=True)
@@ -404,10 +405,10 @@ class SolveGlobal(BlockTask):
         agglomerator = key_to_agglomerator(
             cfg.get("agglomerator", "kernighan-lin"))
 
-        from ..core.runtime import stage
-
-        uv_dense, n_nodes, s0_nodes = _load_scale_graph(problem_path, scale)
-        costs = _load_costs(problem_path, scale)
+        with stage("store-read"):
+            uv_dense, n_nodes, s0_nodes = _load_scale_graph(problem_path,
+                                                            scale)
+            costs = _load_costs(problem_path, scale)
         with stage("host-solve"):
             labels = agglomerator(n_nodes, uv_dense.astype("int64"), costs,
                                   time_limit=cfg.get("time_limit_solver"))
