@@ -260,13 +260,15 @@ def gpu_info() -> str:
 # ---------------------------------------------------------------------------
 
 def build_all() -> float:
-    """Build the CUDA kernel (nvcc) and the C++ solvers (g++) in parallel."""
+    """Build the CUDA kernels (nvcc) and the C++ solvers (g++) in
+    parallel."""
     from cluster_tools_tpu_torch import native
-    from cluster_tools_tpu_torch.ops import edt
+    from cluster_tools_tpu_torch.ops import edt, norm
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        futs = [pool.submit(edt.build_kernel), pool.submit(native.load)]
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(edt.build_kernel), pool.submit(native.load),
+                pool.submit(norm.kernel_library)]
         for f in futs:
             f.result()
     return time.perf_counter() - t0
@@ -5018,9 +5020,158 @@ def orbax_restore_path(repo: str, device: str = "cuda"):
     return recs
 
 
+#: 18f: the GroupNorm + GELU kernel pair at the 14 GroupNorms of one step
+#: of the benchmark's training cell (batch 2, (32, 256, 256) crops, widths
+#: 64-128-256-512, 2x2x2 pooling); timed reps
+P18F_BATCH, P18F_CROP = 2, (32, 256, 256)
+P18F_FEATURES = (64, 128, 256, 512)
+P18F_REPS = 5
+#: bytes per bfloat16 value the pair has to move: forward x read for the
+#: moments, then x read and y written; backward x and dy read for the
+#: sums, then again with dx written (each pass needs the whole row's
+#: statistics of the one before it)
+GN_BYTES_FWD, GN_BYTES_BWD = 6, 10
+#: the kernels' bfloat16 output against the plain version's float32 value:
+#: within one bfloat16 ulp, or GN_OUT_ATOL where the float32 z = x a + b
+#: cancels near 0 (both sides round it, in another order)
+GN_OUT_ATOL = 1e-5
+GN_PARAM_GRAD_REL, GN_DX_REL = 1e-4, 2e-2
+
+
+def groupnorm_step_shapes():
+    """(N, C, D, H, W) of the 14 GroupNorms of one training step, in the
+    order the forward runs them."""
+    n_lv = len(P18F_FEATURES)
+    dims = [tuple(d >> lv for d in P18F_CROP) for lv in range(n_lv)]
+    enc = [(P18F_BATCH, f) + dims[lv]
+           for lv, f in enumerate(P18F_FEATURES[:-1]) for _ in range(2)]
+    mid = [(P18F_BATCH, P18F_FEATURES[-1]) + dims[-1]] * 2
+    dec = [(P18F_BATCH, P18F_FEATURES[lv]) + dims[lv]
+           for lv in reversed(range(n_lv - 1)) for _ in range(2)]
+    return enc + mid + dec
+
+
+def _gn_library(x, w, b, groups, eps, out_dtype):
+    """One PyTorch call per op in the working dtype: ``nn.GroupNorm`` and
+    ``F.gelu`` on the bfloat16 tensor (a yardstick; the port never calls
+    it)."""
+    import torch.nn.functional as F
+
+    return F.gelu(F.group_norm(x, groups, w.to(x.dtype), b.to(x.dtype),
+                               eps), approximate="tanh").to(out_dtype)
+
+
+def groupnorm_kernel_vs_plain():
+    """Phase 18f: the kernel pair ``csrc/groupnorm.cu`` (``ops/norm.py``)
+    against the plain version at each distinct shape of a training step
+    (output, dweight, dbias, dx), then the forward and backward of all 14
+    calls of one step timed for the kernels, the plain version and the
+    library, beside the bytes bound; the launches of one step; the device
+    time by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.ops import norm
+
+    shapes = groupnorm_step_shapes()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    inputs = {}
+    for shp in sorted(set(shapes)):
+        c = shp[1]
+        x = (torch.randn(shp, device="cuda", generator=gen) * 2.0
+             + torch.randn((1, c, 1, 1, 1), device="cuda", generator=gen)
+             ).to(torch.bfloat16)
+        w = 1 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+        b = 0.2 * torch.randn(c, device="cuda", generator=gen)
+        dy = torch.randn(shp, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        inputs[shp] = (x, w, b, dy)
+
+    def one(fn, shp):
+        x, w, b, dy = inputs[shp]
+        xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, b))
+        y = fn(xr, wr, br, min(8, shp[1]), 1e-6, torch.bfloat16)
+        y.backward(dy)
+        return y, xr.grad, wr.grad, br.grad
+
+    def step(fn, grad=True):
+        if not grad:
+            with torch.no_grad():
+                for shp in shapes:
+                    x, w, b, _ = inputs[shp]
+                    fn(x, w, b, min(8, shp[1]), 1e-6, torch.bfloat16)
+            return
+        for shp in shapes:
+            one(fn, shp)
+
+    checks = []
+    for shp in sorted(set(shapes)):
+        y, dx, dw, db = one(norm.group_norm_gelu, shp)
+        x, w, b, dy = inputs[shp]
+        xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, b))
+        z = F.gelu(F.group_norm(xr.float(), min(8, shp[1]), wr, br, 1e-6),
+                   approximate="tanh")
+        z.backward(dy.float())
+        ref = z.detach()
+        _, e = torch.frexp(ref)
+        ulp = torch.ldexp(torch.ones_like(ref), torch.clamp(e - 8, min=-133))
+        err = (y.detach().float() - ref).abs()
+        rec = {"shape": list(shp),
+               "out_max_ulps_vs_f32": float((err / ulp).max()),
+               "out_max_abs_beyond_1ulp": float(
+                   torch.where(err > ulp, err, 0).max()),
+               "dweight_rel": float((dw - wr.grad).abs().max()
+                                    / wr.grad.abs().max()),
+               "dbias_rel": float((db - br.grad).abs().max()
+                                  / br.grad.abs().max()),
+               "dx_rel": float((dx.float() - xr.grad).abs().max()
+                               / xr.grad.abs().max())}
+        checks.append(rec)
+        log(f"groupnorm-kernel-vs-plain {json.dumps(rec)}")
+        if not (rec["out_max_abs_beyond_1ulp"] <= GN_OUT_ATOL
+                and rec["dweight_rel"] <= GN_PARAM_GRAD_REL
+                and rec["dbias_rel"] <= GN_PARAM_GRAD_REL
+                and rec["dx_rel"] <= GN_DX_REL):
+            raise AssertionError(f"18f: the GroupNorm kernels differ from "
+                                 f"the plain version: {rec}")
+        del y, dx, dw, db, xr, wr, br, z, ref, err, ulp
+
+    before = kernels.counts()
+    step(norm.group_norm_gelu)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in kernels.counts().items()
+                if k.startswith("groupnorm")}
+    if launches != {"groupnorm_gelu": 14, "groupnorm_gelu_bwd": 14}:
+        raise AssertionError(f"18f: one step launched {launches}")
+    values = sum(int(np.prod(s)) for s in shapes)
+    rec = {"shapes": len(shapes), "values": values, "launches": launches,
+           "bound_ms": bytes_bound_ms((GN_BYTES_FWD + GN_BYTES_BWD)
+                                      * values),
+           "bound_fwd_ms": bytes_bound_ms(GN_BYTES_FWD * values)}
+    for tag, fn in (("kernel", norm.group_norm_gelu),
+                    ("plain", norm.group_norm_gelu_plain),
+                    ("library", _gn_library)):
+        rec[f"{tag}_ms"] = _time_ms(lambda: step(fn), reps=P18F_REPS)
+        rec[f"{tag}_fwd_ms"] = _time_ms(lambda: step(fn, grad=False),
+                                        reps=P18F_REPS)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(norm.group_norm_gelu)
+        torch.cuda.synchronize()
+    rec["kernel_device_ms"] = {
+        e.key[:48]: e.device_time_total / 1e3
+        for e in sorted(prof.key_averages(),
+                        key=lambda e: -e.device_time_total)[:8]}
+    rec["checks"] = checks
+    log(f"groupnorm-step {json.dumps(rec)}")
+    return rec
+
+
 def training_paths(root: str, gt: np.ndarray, repo: str):
-    """Phase 18: training and the parallel primitives on the card (no
-    kernel of the port lies on them)."""
+    """Phase 18: training and the parallel primitives on the card; the
+    U-Net's GroupNorm runs the kernel pair ``csrc/groupnorm.cu``, 18f
+    checks and times it.  Returns 18f's record."""
     log(f"phase 18: training ({P18_MESH} shards on 1 card for the "
         f"sharded step) and the primitives ({P18_SHARDS} shards)")
     _phase("18a", train_card_vs_cpu)
@@ -5029,6 +5180,7 @@ def training_paths(root: str, gt: np.ndarray, repo: str):
     del run
     _phase("18d", primitives_card)
     _phase("18e", orbax_restore_path, repo)
+    return _phase("18f", groupnorm_kernel_vs_plain)
 
 
 def _phase(name, fn, *args):
@@ -5092,6 +5244,13 @@ def main() -> int:
         phase("7c", mws_card_vs_cpu, root)
         phase("7d", config5_chain, root, inf_store, ckpt)
         phase("8a", inference_path, root, ckpt)
+        # 8a's forwards (it resets the counts): the GroupNorm kernel,
+        # never its backward
+        gn_launches = kernels.counts()
+        if gn_launches["groupnorm_gelu"] == 0 or \
+                gn_launches["groupnorm_gelu_bwd"] != 0:
+            raise AssertionError(f"phase 8a: GroupNorm launches "
+                                 f"{gn_launches}")
         phase("8b", mws_path, root, gt)
         # phases 9-10 lie on no kernel of the port
         kernels.reset_counts()
@@ -5175,11 +5334,13 @@ def main() -> int:
         # phase 17: the multi-device paths, 4 shards on the one card
         mesh_launches = mesh_paths(root, BLOCK, gt, record["quality"],
                                    crop_store, ckpt)
-        # phase 18: training and the parallel primitives lie on no kernel
-        # of the port
+        # phase 18: training and the parallel primitives lie on no EDT;
+        # the U-Net's GroupNorm runs the kernel pair
         kernels.reset_counts()
-        training_paths(root, gt, repo)
-        if kernels.counts()["minplus"] != 0:
+        gn_step = training_paths(root, gt, repo)
+        late18 = kernels.counts()
+        log(f"phase 18 kernel launches {json.dumps(late18)}")
+        if late18["minplus"] != 0:
             raise AssertionError("phase 18 launched the min-plus kernel")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5208,6 +5369,27 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in timed),
         "bound_ms": sum(r["bound_ms"] for r in timed),
         "bound_by": "bytes", "library_ms": None}]}
+    for name in ("groupnorm_gelu", "groupnorm_gelu_bwd"):
+        k = kernels.KERNELS[name]
+        fwd = name == "groupnorm_gelu"
+        line["kernels"].append({
+            "name": k.name, "route": k.route, "source": k.source,
+            "replaces": k.replaces,
+            # phase 8a (inference, forward only) and 18 (training)
+            "launches": gn_launches[name] + late18[name],
+            "launches_by_phase": {"8a": gn_launches[name],
+                                  "18": late18[name]},
+            # the 14 GroupNorms of one step of the training cell: the
+            # forward alone, and the backward as the rest of the step
+            "ms": gn_step["kernel_fwd_ms"] if fwd else
+            gn_step["kernel_ms"] - gn_step["kernel_fwd_ms"],
+            "plain_ms": gn_step["plain_fwd_ms"] if fwd else
+            gn_step["plain_ms"] - gn_step["plain_fwd_ms"],
+            "bound_ms": gn_step["bound_fwd_ms"] if fwd else
+            gn_step["bound_ms"] - gn_step["bound_fwd_ms"],
+            "bound_by": "bytes",
+            "library_ms": gn_step["library_fwd_ms"] if fwd else
+            gn_step["library_ms"] - gn_step["library_fwd_ms"]})
     log("kernel-timed fit outer block " + json.dumps({
         "shape": fit_timed[0]["shape"],
         "ms": sum(r["ms"] for r in fit_timed),

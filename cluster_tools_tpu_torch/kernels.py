@@ -21,7 +21,7 @@ class Kernel:
     name: str
     route: str          # "cuda" (CUDA C++ built with nvcc)
     source: str         # path in the repository
-    replaces: str       # the TPU kernel it ports, file:line
+    replaces: str       # the TPU kernel (or XLA-lowered code) it ports
     launches: int = 0
 
 
@@ -30,6 +30,17 @@ KERNELS: Dict[str, Kernel] = {
         name="minplus", route="cuda",
         source="cluster_tools_tpu_torch/csrc/minplus.cu",
         replaces="cluster_tools_tpu/ops/edt.py:53"),
+    # GroupNorm + tanh GELU of the U-Net's ConvBlock (ops/norm.py): the
+    # JAX package's flax nn.GroupNorm + nn.gelu, lowered by XLA (no Pallas
+    # kernel); one launch = one call of the C entry point (three kernels)
+    "groupnorm_gelu": Kernel(
+        name="groupnorm_gelu", route="cuda",
+        source="cluster_tools_tpu_torch/csrc/groupnorm.cu",
+        replaces="cluster_tools_tpu/models/unet.py:51-53"),
+    "groupnorm_gelu_bwd": Kernel(
+        name="groupnorm_gelu_bwd", route="cuda",
+        source="cluster_tools_tpu_torch/csrc/groupnorm.cu",
+        replaces="cluster_tools_tpu/models/unet.py:51-53"),
 }
 
 

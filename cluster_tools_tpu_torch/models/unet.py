@@ -9,7 +9,9 @@ same parameters (``models/checkpoint.py`` carries them over):
   kernels and biases are cast to it where the flax module casts them, and
   the bias is added after the convolution, as flax does;
 * GroupNorm (``min(8, features)`` groups, epsilon 1e-6) in float32, then
-  the tanh approximation of GELU (flax ``nn.gelu``'s default);
+  the tanh approximation of GELU (flax ``nn.gelu``'s default), cast to
+  ``dtype``: :func:`~..ops.norm.group_norm_gelu`, the hand-written kernel
+  pair on the card, the plain PyTorch version on the CPU;
 * skips concatenated as ``[upsampled, skip]``; the final 1x1 convolution
   and the sigmoid in float32.
 
@@ -28,6 +30,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.norm import group_norm_gelu
 
 #: default long-range offset pattern (reference: mws default offsets — the
 #: 12-channel neighborhood of mutex_watershed/mws_blocks.py)
@@ -77,9 +81,15 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, norm in zip(self.convs, self.norms):
             x = _conv(x, conv, self.dtype)
-            # GroupNorm in float32 for stable statistics
-            x = F.gelu(norm(x.to(torch.float32)), approximate="tanh")
-            x = x.to(self.dtype)
+            if x.is_cuda:
+                # the kernels take (B, C, D, H, W) contiguous; cuDNN writes
+                # channels-last for channels-last inputs or kernels (such
+                # as kernels restored as transposed views)
+                x = x.contiguous()
+            # GroupNorm in float32 for stable statistics; ``norm`` holds
+            # the parameters
+            x = group_norm_gelu(x, norm.weight, norm.bias, norm.num_groups,
+                                norm.eps, self.dtype)
         return x
 
 
