@@ -5141,7 +5141,7 @@ def groupnorm_kernel_vs_plain():
     step(norm.group_norm_gelu)
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in kernels.counts().items()
-                if k.startswith("groupnorm")}
+                if k.startswith("groupnorm") and v != before[k]}
     if launches != {"groupnorm_gelu": 14, "groupnorm_gelu_bwd": 14}:
         raise AssertionError(f"18f: one step launched {launches}")
     values = sum(int(np.prod(s)) for s in shapes)
@@ -5168,10 +5168,223 @@ def groupnorm_kernel_vs_plain():
     return rec
 
 
+#: 18g: the pair's InstanceNorm instances (a group per channel, no affine
+#: parameters; LeakyReLU(0.01) or no activation) at the 26 InstanceNorms of
+#: one step of the benchmark's Swin UNETR cell (batch 4, 96^3 crops, the
+#: published widths); timed reps
+P18G_BATCH, P18G_CROP = 4, (96, 96, 96)
+P18G_REPS = 5
+IN_EPS = 1e-5
+IN_ACTIVATIONS = ("leaky_relu", "none")
+#: the least bytes per bfloat16 value: x read and y written forward; x and
+#: dy read and dx written backward (the pair moves GN_BYTES_FWD and
+#: GN_BYTES_BWD)
+IN_BYTES_FWD, IN_BYTES_BWD = 4, 6
+#: |z| (float32, normalized) under which LeakyReLU's slope is the
+#: rounding's choice: the two sides may take either, so dx is not
+#: compared there (tests/test_torch_instnorm.py's KINK)
+IN_KINK = 1e-5
+#: the launches of one Swin UNETR step: one LeakyReLU InstanceNorm per
+#: residual block (10), and one without activation after each block's
+#: second convolution and on the 1x1x1 path of the six that change width
+SWIN_STEP_LAUNCHES = {"groupnorm_leaky_relu": 10,
+                      "groupnorm_leaky_relu_bwd": 10,
+                      "groupnorm_none": 16, "groupnorm_none_bwd": 16}
+
+
+def _in_library(x, activation):
+    """One PyTorch call per op on the bfloat16 tensor: ``F.group_norm``
+    with a group per channel, then ``F.leaky_relu`` (a yardstick; the port
+    never calls it)."""
+    import torch.nn.functional as F
+
+    z = F.group_norm(x, x.shape[1], eps=IN_EPS)
+    return F.leaky_relu(z, 0.01) if activation == "leaky_relu" else z
+
+
+def swin_step_norms():
+    """One training step of Swin UNETR at the benchmark's size on the card:
+    ``(shape, activation)`` of each InstanceNorm in the order the forward
+    runs them, and the pair's launches of the step, counted from zero."""
+    import torch
+
+    from cluster_tools_tpu_torch import kernels
+    from cluster_tools_tpu_torch.models import swin_unetr as S
+    from cluster_tools_tpu_torch.models import train as T
+
+    model = S.create_swin_unetr().cuda()
+    shape = (P18G_BATCH, 1) + P18G_CROP
+    state = T.init_state(model, shape,
+                         generator=torch.Generator().manual_seed(18))
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn(shape, device="cuda", generator=gen)
+    y = (torch.rand((P18G_BATCH, model.out_channels) + P18G_CROP,
+                    device="cuda", generator=gen) > 0.5).float()
+    calls = []
+    orig = S.group_norm_act
+
+    def record(t, w, b, groups, eps, out_dtype, activation="gelu_tanh"):
+        calls.append((tuple(t.shape), activation))
+        return orig(t, w, b, groups, eps, out_dtype, activation)
+
+    step = T.make_train_step(model, 1e-4)
+    before = kernels.counts()
+    S.group_norm_act = record
+    try:
+        _, loss = step(state, x, y)
+        torch.cuda.synchronize()
+    finally:
+        S.group_norm_act = orig
+    launches = {k: v - before[k] for k, v in kernels.counts().items()
+                if v != before[k]}
+    if launches != SWIN_STEP_LAUNCHES or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"18g: one Swin UNETR step launched "
+                             f"{launches}, loss {float(loss)}")
+    return calls, launches
+
+
+def instnorm_kernel_vs_plain():
+    """Phase 18g: the pair's InstanceNorm instances (``group_norm_act``
+    with ``weight = bias = None``, groups = channels, ``"leaky_relu"`` and
+    ``"none"``) against the plain version at each distinct shape of a Swin
+    UNETR step (output, dx), with ``tests/test_torch_instnorm.py``'s
+    tolerances; the launches of one step; then, per activation, its calls
+    of one step timed forward and backward for the kernels, the plain
+    version and the library, beside the least bytes; the device time by
+    kernel."""
+    import torch
+
+    from cluster_tools_tpu_torch.ops import norm
+
+    calls, launches = swin_step_norms()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    inputs = {}
+    for shp in sorted({s for s, _ in calls}):
+        c = shp[1]
+        x = (torch.randn(shp, device="cuda", generator=gen) * 2.0
+             + torch.randn((1, c, 1, 1, 1), device="cuda", generator=gen)
+             ).to(torch.bfloat16)
+        dy = torch.randn(shp, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        inputs[shp] = (x, dy)
+
+    def kernel(x, act):
+        return norm.group_norm_act(x, None, None, x.shape[1], IN_EPS,
+                                   x.dtype, act)
+
+    def plain(x, act):
+        return norm.group_norm_act_plain(x, None, None, x.shape[1], IN_EPS,
+                                         x.dtype, act)
+
+    def one(fn, shp, act):
+        x, dy = inputs[shp]
+        xr = x.detach().requires_grad_(True)
+        y = fn(xr, act)
+        y.backward(dy)
+        return y, xr.grad
+
+    def step(fn, act, grad=True):
+        for shp, a in calls:
+            if a != act:
+                continue
+            if grad:
+                one(fn, shp, act)
+            else:
+                with torch.no_grad():
+                    fn(inputs[shp][0], act)
+
+    checks = []
+    for shp, act in sorted(set(calls)):
+        y, dx = one(kernel, shp, act)
+        x, dy = inputs[shp]
+        xr = x.detach().float().requires_grad_(True)
+        z = norm.group_norm_act_plain(xr, None, None, shp[1], IN_EPS,
+                                      torch.float32, act)
+        z.backward(dy.float())
+        ref, rdx = z.detach(), xr.grad
+        _, e = torch.frexp(ref)
+        ulp = torch.ldexp(torch.ones_like(ref), torch.clamp(e - 8, min=-133))
+        err = (y.detach().float() - ref).abs()
+        dx = dx.float()
+        rec = {"shape": list(shp), "activation": act}
+        if act == "leaky_relu":
+            kink = torch.group_norm(x.float(), shp[1], None, None,
+                                    IN_EPS).abs() < IN_KINK
+            rec["at_kink"] = int(kink.sum())
+            dx, rdx = torch.where(kink, 0, dx), torch.where(kink, 0, rdx)
+        rec.update({
+            "out_max_ulps_vs_f32": float((err / ulp).max()),
+            "out_max_abs_beyond_1ulp": float(
+                torch.where(err > ulp, err, 0).max()),
+            "dx_rel": float((dx - rdx).abs().max()
+                            / rdx.abs().max().clamp(min=1e-30))})
+        checks.append(rec)
+        log(f"instnorm-kernel-vs-plain {json.dumps(rec)}")
+        if not (rec["out_max_abs_beyond_1ulp"] <= GN_OUT_ATOL
+                and rec["dx_rel"] <= GN_DX_REL):
+            raise AssertionError(f"18g: the InstanceNorm kernels differ "
+                                 f"from the plain version: {rec}")
+        del y, dx, xr, z, ref, rdx, err, ulp
+
+    rec = {"calls": len(calls), "launches": launches, "by_activation": {}}
+    for act in IN_ACTIVATIONS:
+        values = sum(int(np.prod(s)) for s, a in calls if a == act)
+        timed = {"calls": sum(a == act for _, a in calls), "values": values,
+                 "bound_ms": bytes_bound_ms((IN_BYTES_FWD + IN_BYTES_BWD)
+                                            * values),
+                 "bound_fwd_ms": bytes_bound_ms(IN_BYTES_FWD * values)}
+        for tag, fn in (("kernel", kernel), ("plain", plain),
+                        ("library", _in_library)):
+            timed[f"{tag}_ms"] = _time_ms(lambda: step(fn, act),
+                                          reps=P18G_REPS)
+            timed[f"{tag}_fwd_ms"] = _time_ms(
+                lambda: step(fn, act, grad=False), reps=P18G_REPS)
+        rec["by_activation"][act] = timed
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for act in IN_ACTIVATIONS:
+            step(kernel, act)
+        torch.cuda.synchronize()
+    # whole names: the instances differ only in their template arguments
+    rec["kernel_device_ms"] = {
+        e.key: e.device_time_total / 1e3
+        for e in sorted(prof.key_averages(),
+                        key=lambda e: -e.device_time_total)[:12]
+        if e.device_time_total > 0}
+    rec["checks"] = checks
+    log(f"instnorm-step {json.dumps(rec)}")
+    return rec
+
+
+def pair_rows(name: str, timed, launches_by_phase):
+    """The kernels line's two rows of one instance of the GroupNorm pair:
+    the forward, and the backward as the rest of the timed step."""
+    from cluster_tools_tpu_torch import kernels
+
+    rows = []
+    for fwd in (True, False):
+        k = kernels.KERNELS[name if fwd else name + "_bwd"]
+        counts = {ph: n[k.name] for ph, n in launches_by_phase.items()}
+
+        def part(key):
+            return timed[f"{key}_fwd_ms"] if fwd else \
+                timed[f"{key}_ms"] - timed[f"{key}_fwd_ms"]
+
+        rows.append({
+            "name": k.name, "route": k.route, "source": k.source,
+            "replaces": k.replaces, "launches": sum(counts.values()),
+            "launches_by_phase": counts, "ms": part("kernel"),
+            "plain_ms": part("plain"), "bound_ms": part("bound"),
+            "bound_by": "bytes", "library_ms": part("library")})
+    return rows
+
+
 def training_paths(root: str, gt: np.ndarray, repo: str):
     """Phase 18: training and the parallel primitives on the card; the
-    U-Net's GroupNorm runs the kernel pair ``csrc/groupnorm.cu``, 18f
-    checks and times it.  Returns 18f's record."""
+    U-Net's GroupNorm and Swin UNETR's InstanceNorms run the kernel pair
+    ``csrc/groupnorm.cu``, 18f and 18g check and time it.  Returns 18f's
+    and 18g's records."""
     log(f"phase 18: training ({P18_MESH} shards on 1 card for the "
         f"sharded step) and the primitives ({P18_SHARDS} shards)")
     _phase("18a", train_card_vs_cpu)
@@ -5180,7 +5393,8 @@ def training_paths(root: str, gt: np.ndarray, repo: str):
     del run
     _phase("18d", primitives_card)
     _phase("18e", orbax_restore_path, repo)
-    return _phase("18f", groupnorm_kernel_vs_plain)
+    gn_step = _phase("18f", groupnorm_kernel_vs_plain)
+    return gn_step, _phase("18g", instnorm_kernel_vs_plain)
 
 
 def _phase(name, fn, *args):
@@ -5335,9 +5549,10 @@ def main() -> int:
         mesh_launches = mesh_paths(root, BLOCK, gt, record["quality"],
                                    crop_store, ckpt)
         # phase 18: training and the parallel primitives lie on no EDT;
-        # the U-Net's GroupNorm runs the kernel pair
+        # the U-Net's GroupNorm and Swin UNETR's InstanceNorms run the
+        # kernel pair
         kernels.reset_counts()
-        gn_step = training_paths(root, gt, repo)
+        gn_step, in_step = training_paths(root, gt, repo)
         late18 = kernels.counts()
         log(f"phase 18 kernel launches {json.dumps(late18)}")
         if late18["minplus"] != 0:
@@ -5369,27 +5584,15 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in timed),
         "bound_ms": sum(r["bound_ms"] for r in timed),
         "bound_by": "bytes", "library_ms": None}]}
-    for name in ("groupnorm_gelu", "groupnorm_gelu_bwd"):
-        k = kernels.KERNELS[name]
-        fwd = name == "groupnorm_gelu"
-        line["kernels"].append({
-            "name": k.name, "route": k.route, "source": k.source,
-            "replaces": k.replaces,
-            # phase 8a (inference, forward only) and 18 (training)
-            "launches": gn_launches[name] + late18[name],
-            "launches_by_phase": {"8a": gn_launches[name],
-                                  "18": late18[name]},
-            # the 14 GroupNorms of one step of the training cell: the
-            # forward alone, and the backward as the rest of the step
-            "ms": gn_step["kernel_fwd_ms"] if fwd else
-            gn_step["kernel_ms"] - gn_step["kernel_fwd_ms"],
-            "plain_ms": gn_step["plain_fwd_ms"] if fwd else
-            gn_step["plain_ms"] - gn_step["plain_fwd_ms"],
-            "bound_ms": gn_step["bound_fwd_ms"] if fwd else
-            gn_step["bound_ms"] - gn_step["bound_fwd_ms"],
-            "bound_by": "bytes",
-            "library_ms": gn_step["library_fwd_ms"] if fwd else
-            gn_step["library_ms"] - gn_step["library_fwd_ms"]})
+    # phase 8a (inference, forward only) and 18 (training): the 14
+    # GroupNorms of one step of the U-Net cell (18f), the 26 InstanceNorms
+    # of one step of the Swin UNETR cell, by activation (18g)
+    pair_phases = {"8a": gn_launches, "18": late18}
+    line["kernels"] += pair_rows("groupnorm_gelu", gn_step, pair_phases)
+    for act in IN_ACTIVATIONS:
+        line["kernels"] += pair_rows(f"groupnorm_{act}",
+                                     in_step["by_activation"][act],
+                                     pair_phases)
     log("kernel-timed fit outer block " + json.dumps({
         "shape": fit_timed[0]["shape"],
         "ms": sum(r["ms"] for r in fit_timed),

@@ -86,6 +86,9 @@ STAGE_REGISTRY = {
     "pool-wait",
     # interactive proofreading lane (edits/)
     "edit:resolve", "edit:solve", "edit:patch", "edit:write",
+    # Swin UNETR's forward (models/swin_unetr.py), also profiler ranges
+    "swin-forward", "swin-embed", "swin-window-attn", "swin-mlp",
+    "swin-merge", "swin-decoder",
 }
 
 

@@ -1,8 +1,12 @@
-// GroupNorm followed by the tanh GELU, forward and backward, for the U-Net's
-// ConvBlock (cluster_tools_tpu_torch/models/unet.py, through ops/norm.py):
+// GroupNorm followed by an activation, forward and backward: the U-Net's
+// ConvBlock (cluster_tools_tpu_torch/models/unet.py) and Swin UNETR's
+// residual blocks (models/swin_unetr.py), through ops/norm.py:
 //
-//     z = (x - mean_g) * rstd_g * w_c + b_c,     y = gelu_tanh(z)
+//     z = (x - mean_g) * rstd_g * w_c + b_c,     y = act(z)
 //
+// act is a compile-time parameter: the tanh GELU (the U-Net's), LeakyReLU
+// with slope 0.01 or none (Swin UNETR's InstanceNorms, G = C, with w = 1
+// and b = 0 passed for "no affine parameters").
 // on a contiguous (N, C, S) tensor (S = D * H * W), G groups of C / G
 // channels, the moments taken per (sample, group) over C / G * S values
 // (biased variance, rstd = 1 / sqrt(var + eps)).  It replaces no Pallas
@@ -39,8 +43,10 @@
 //     with 1 - s formed as e * s where e = exp(-2u) <= 1.
 // All arithmetic is float32 (the merges float64); a value's channel is
 // fixed within a block, so (mean, rstd, w, b) are read once per block.
+// float16 inputs take the same kernels (8 values per 16-byte load).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,6 +59,10 @@ constexpr int kUnroll = 4;     // vector loads a thread has in flight
 
 constexpr float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float kKappa = 0.044715f;
+constexpr float kLeakySlope = 0.01f;
+
+// the activation after the norm (ops/norm.py ACTIVATIONS)
+enum Act : int { kGeluTanh = 0, kLeakyRelu = 1, kNone = 2 };
 
 // ---------------------------------------------------------------------------
 // loads and stores
@@ -62,6 +72,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -70,6 +81,10 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 __device__ __forceinline__ void load_pack(const float* p, float v[kPack]) {
@@ -90,6 +105,17 @@ __device__ __forceinline__ void load_pack(const __nv_bfloat16* p,
   }
 }
 
+__device__ __forceinline__ void load_pack(const __half* p, float v[kPack]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // the lower address in the low half
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store_pack(float* p, const float v[kPack]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -101,6 +127,16 @@ __device__ __forceinline__ void store_pack(__nv_bfloat16* p,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void store_pack(__half* p, const float v[kPack]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
     w[i] = *reinterpret_cast<const uint32_t*>(&h);
   }
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -129,6 +165,22 @@ __device__ __forceinline__ float gelu_tanh_grad(float z) {
   const float t = u >= 0.f ? e * s : 1.f - s;     // 1 - s
   const float du = kBeta * fmaf(3.f * kKappa * z, z, 1.f);
   return fmaf(2.f * z * s, t * du, s);
+}
+
+// The activation and its derivative at z (LeakyReLU as F.leaky_relu: z
+// where z > 0, else 0.01 z; the slope at 0).
+template <int ACT>
+__device__ __forceinline__ float act_fwd(float z) {
+  if (ACT == kGeluTanh) return gelu_tanh(z);
+  if (ACT == kLeakyRelu) return z > 0.f ? z : z * kLeakySlope;
+  return z;
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_grad(float z) {
+  if (ACT == kGeluTanh) return gelu_tanh_grad(z);
+  if (ACT == kLeakyRelu) return z > 0.f ? 1.f : kLeakySlope;
+  return 1.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -327,10 +379,10 @@ __global__ void groupnorm_moments_kernel(const float2* __restrict__ part,
   }
 }
 
-// Pass 3: y = gelu_tanh(x * a + sh), a = rstd * w_c, sh = b_c - mean * a.
-template <typename T, bool VEC>
+// Pass 3: y = act(x * a + sh), a = rstd * w_c, sh = b_c - mean * a.
+template <typename T, bool VEC, int ACT>
 __global__ void __launch_bounds__(kThreads)
-groupnorm_gelu_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
+groupnorm_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
                             const float* __restrict__ w,
                             const float* __restrict__ b,
                             const float* __restrict__ mean,
@@ -347,7 +399,7 @@ groupnorm_gelu_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
                        float o[kPack];
 #pragma unroll
                        for (int i = 0; i < kPack; ++i)
-                         if (i < n) o[i] = gelu_tanh(fmaf(v[i], a, sh));
+                         if (i < n) o[i] = act_fwd<ACT>(fmaf(v[i], a, sh));
                        if (n == kPack)
                          store_pack(yr + p * kPack, o);
                        else
@@ -359,23 +411,26 @@ groupnorm_gelu_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
 // backward
 // ---------------------------------------------------------------------------
 
-// dz = dy * gelu'(z) and xhat = (x - mean) * rstd of one value.
+// dz = dy * act'(z) and xhat = (x - mean) * rstd of one value.
+template <int ACT>
 struct Grad {
   float a, sh, mu, r;
   __device__ __forceinline__ void operator()(float x, float dy, float* dz,
                                              float* xhat) const {
-    *dz = dy * gelu_tanh_grad(fmaf(x, a, sh));
+    *dz = dy * act_grad<ACT>(fmaf(x, a, sh));
     *xhat = (x - mu) * r;
   }
 };
 
-__device__ __forceinline__ Grad grad_of_row(long long row, int C, int cpg,
-                                            const float* w, const float* b,
-                                            const float* mean,
-                                            const float* rstd) {
+template <int ACT>
+__device__ __forceinline__ Grad<ACT> grad_of_row(long long row, int C,
+                                                 int cpg, const float* w,
+                                                 const float* b,
+                                                 const float* mean,
+                                                 const float* rstd) {
   const long long ng = row / cpg;
   const int c = static_cast<int>(row % C);
-  Grad g;
+  Grad<ACT> g;
   g.mu = mean[ng];
   g.r = rstd[ng];
   g.a = g.r * w[c];
@@ -384,9 +439,9 @@ __device__ __forceinline__ Grad grad_of_row(long long row, int C, int cpg,
 }
 
 // Pass 1: sum dz and dz * xhat over one chunk of one (sample, channel) row.
-template <typename T, bool VEC>
+template <typename T, bool VEC, int ACT>
 __global__ void __launch_bounds__(kThreads)
-groupnorm_gelu_bwd_reduce_kernel(const T* __restrict__ dy,
+groupnorm_bwd_reduce_kernel(const T* __restrict__ dy,
                                  const T* __restrict__ x,
                                  const float* __restrict__ w,
                                  const float* __restrict__ b,
@@ -395,7 +450,7 @@ groupnorm_gelu_bwd_reduce_kernel(const T* __restrict__ dy,
                                  float2* __restrict__ part, long long S,
                                  long long L, int K, int C, int cpg) {
   const Chunk ch = chunk_of_block(S, L, K);
-  const Grad g = grad_of_row(ch.row, C, cpg, w, b, mean, rstd);
+  const Grad<ACT> g = grad_of_row<ACT>(ch.row, C, cpg, w, b, mean, rstd);
   const T* dyr = dy + ch.row * S;
   float2 acc = make_float2(0.f, 0.f);
   walk_chunk<T, VEC>(x + ch.row * S, ch.s0, ch.s1,
@@ -422,7 +477,7 @@ groupnorm_gelu_bwd_reduce_kernel(const T* __restrict__ dy,
 // chunks: dbias[c] = sum dz, dweight[c] = sum dz * xhat.  Blocks C ..: one
 // per (sample, group), the group's sums of w_c dz and w_c dz xhat over its
 // M = C / G * S values, divided by M.  Fixed order, float64.
-__global__ void groupnorm_gelu_bwd_params_kernel(
+__global__ void groupnorm_bwd_params_kernel(
     const float2* __restrict__ part, const float* __restrict__ w,
     float* __restrict__ dw, float* __restrict__ db,
     float2* __restrict__ coef, long long N, int C, int cpg, int K,
@@ -460,9 +515,9 @@ __global__ void groupnorm_gelu_bwd_params_kernel(
 }
 
 // Pass 3: dx = rstd (w_c dz - mean(w dz) - xhat mean(w dz xhat)).
-template <typename T, bool VEC>
+template <typename T, bool VEC, int ACT>
 __global__ void __launch_bounds__(kThreads)
-groupnorm_gelu_bwd_dx_kernel(const T* __restrict__ dy,
+groupnorm_bwd_dx_kernel(const T* __restrict__ dy,
                              const T* __restrict__ x,
                              const float* __restrict__ w,
                              const float* __restrict__ b,
@@ -472,7 +527,7 @@ groupnorm_gelu_bwd_dx_kernel(const T* __restrict__ dy,
                              T* __restrict__ dx, long long S, long long L,
                              int K, int C, int cpg) {
   const Chunk ch = chunk_of_block(S, L, K);
-  const Grad g = grad_of_row(ch.row, C, cpg, w, b, mean, rstd);
+  const Grad<ACT> g = grad_of_row<ACT>(ch.row, C, cpg, w, b, mean, rstd);
   const float wc = w[ch.row % C];
   const float2 q = coef[ch.row / cpg];
   const T* dyr = dy + ch.row * S;
@@ -514,7 +569,7 @@ int check(long long N, int C, int G, long long S, long long L, int K) {
   return 0;
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, int ACT>
 int forward(const void* xv, void* yv, const float* w, const float* b,
             float* mean, float* rstd, float2* part, long long N, int C,
             int G, long long S, long long L, int K, float eps,
@@ -531,12 +586,12 @@ int forward(const void* xv, void* yv, const float* w, const float* b,
       part, mean, rstd, S, L, K, cpg, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  groupnorm_gelu_apply_kernel<T, VEC><<<blocks, kThreads, 0, st>>>(
+  groupnorm_apply_kernel<T, VEC, ACT><<<blocks, kThreads, 0, st>>>(
       x, y, w, b, mean, rstd, S, L, K, C, cpg);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, int ACT>
 int backward(const void* dyv, const void* xv, const float* w, const float* b,
              const float* mean, const float* rstd, void* dxv, float* dw,
              float* db, float2* part, float2* coef, long long N, int C,
@@ -546,25 +601,90 @@ int backward(const void* dyv, const void* xv, const float* w, const float* b,
   T* dx = static_cast<T*>(dxv);
   const int cpg = C / G;
   const unsigned int blocks = static_cast<unsigned int>(N * C * K);
-  groupnorm_gelu_bwd_reduce_kernel<T, VEC><<<blocks, kThreads, 0, st>>>(
+  groupnorm_bwd_reduce_kernel<T, VEC, ACT><<<blocks, kThreads, 0, st>>>(
       dy, x, w, b, mean, rstd, part, S, L, K, C, cpg);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  groupnorm_gelu_bwd_params_kernel<<<static_cast<unsigned int>(C + N * G), 32,
-                                     0, st>>>(
+  groupnorm_bwd_params_kernel<<<static_cast<unsigned int>(C + N * G), 32, 0,
+                                st>>>(
       part, w, dw, db, coef, N, C, cpg, K,
       static_cast<double>(cpg) * static_cast<double>(S));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  groupnorm_gelu_bwd_dx_kernel<T, VEC><<<blocks, kThreads, 0, st>>>(
+  groupnorm_bwd_dx_kernel<T, VEC, ACT><<<blocks, kThreads, 0, st>>>(
       dy, x, w, b, mean, rstd, coef, dx, S, L, K, C, cpg);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch of ``f.run<T, VEC, ACT>()`` for a runtime dtype code (0 =
+// float32, 1 = bfloat16, 2 = float16), activation code (Act) and VEC.
+template <typename T, int ACT, typename F>
+int dispatch_vec(bool vec, const F& f) {
+  return vec ? f.template run<T, true, ACT>() : f.template run<T, false, ACT>();
+}
+
+template <typename T, typename F>
+int dispatch_act(int act, bool vec, const F& f) {
+  switch (act) {
+    case kGeluTanh: return dispatch_vec<T, kGeluTanh>(vec, f);
+    case kLeakyRelu: return dispatch_vec<T, kLeakyRelu>(vec, f);
+    case kNone: return dispatch_vec<T, kNone>(vec, f);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename F>
+int dispatch(int dtype, int act, bool vec, const F& f) {
+  switch (dtype) {
+    case 0: return dispatch_act<float>(act, vec, f);
+    case 1: return dispatch_act<__nv_bfloat16>(act, vec, f);
+    case 2: return dispatch_act<__half>(act, vec, f);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+struct Forward {
+  const void* x;
+  void* y;
+  const float *w, *b;
+  float *mean, *rstd;
+  float2* part;
+  long long N;
+  int C, G;
+  long long S, L;
+  int K;
+  float eps;
+  cudaStream_t st;
+  template <typename T, bool VEC, int ACT>
+  int run() const {
+    return forward<T, VEC, ACT>(x, y, w, b, mean, rstd, part, N, C, G, S, L,
+                                K, eps, st);
+  }
+};
+
+struct Backward {
+  const void *dy, *x;
+  const float *w, *b, *mean, *rstd;
+  void* dx;
+  float *dw, *db;
+  float2 *part, *coef;
+  long long N;
+  int C, G;
+  long long S, L;
+  int K;
+  cudaStream_t st;
+  template <typename T, bool VEC, int ACT>
+  int run() const {
+    return backward<T, VEC, ACT>(dy, x, w, b, mean, rstd, dx, dw, db, part,
+                                 coef, N, C, G, S, L, K, st);
+  }
+};
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  ``dtype`` 0 = float32,
-// 1 = bfloat16, for x, y, dy and dx alike; w, b, mean, rstd, dw, db are
+// 1 = bfloat16, 2 = float16, for x, y, dy and dx alike; ``act`` 0 = tanh
+// GELU, 1 = LeakyReLU (0.01), 2 = none; w, b, mean, rstd, dw, db are
 // float32; ``part`` holds N * C * K float2 partials and ``coef`` N * G
 // float2.  The (row, chunk) plan (L, K) is ops/norm.py chunk_plan's: L a
 // multiple of 8, K = ceil(S / L).  Vector loads are used when S is a
@@ -572,57 +692,34 @@ int backward(const void* dyv, const void* xv, const float* w, const float* b,
 // three kernels on ``stream``, allocates nothing and returns the first
 // cudaError_t of its launches.
 
-extern "C" int ctt_groupnorm_gelu_fwd(const void* x, void* y, int dtype,
-                                      const float* w, const float* b,
-                                      float* mean, float* rstd, void* part,
-                                      long long N, int C, int G, long long S,
-                                      long long L, int K, float eps,
-                                      void* stream) {
+extern "C" int ctt_groupnorm_fwd(const void* x, void* y, int dtype, int act,
+                                 const float* w, const float* b, float* mean,
+                                 float* rstd, void* part, long long N, int C,
+                                 int G, long long S, long long L, int K,
+                                 float eps, void* stream) {
   if (N <= 0 || C <= 0 || S <= 0) return 0;
   const int bad = check(N, C, G, S, L, K);
   if (bad) return bad;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float2* p = static_cast<float2*>(part);
   const bool vec = S % kPack == 0 && aligned16(x) && aligned16(y);
-  if (dtype == 0)
-    return vec ? forward<float, true>(x, y, w, b, mean, rstd, p, N, C, G, S,
-                                      L, K, eps, st)
-               : forward<float, false>(x, y, w, b, mean, rstd, p, N, C, G, S,
-                                       L, K, eps, st);
-  if (dtype == 1)
-    return vec ? forward<__nv_bfloat16, true>(x, y, w, b, mean, rstd, p, N, C,
-                                              G, S, L, K, eps, st)
-               : forward<__nv_bfloat16, false>(x, y, w, b, mean, rstd, p, N,
-                                               C, G, S, L, K, eps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Forward f{x, y, w, b, mean, rstd, static_cast<float2*>(part), N, C,
+                  G, S, L, K, eps, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, act, vec, f);
 }
 
-extern "C" int ctt_groupnorm_gelu_bwd(const void* dy, const void* x,
-                                      int dtype, const float* w,
-                                      const float* b, const float* mean,
-                                      const float* rstd, void* dx, float* dw,
-                                      float* db, void* part, void* coef,
-                                      long long N, int C, int G, long long S,
-                                      long long L, int K, void* stream) {
+extern "C" int ctt_groupnorm_bwd(const void* dy, const void* x, int dtype,
+                                 int act, const float* w, const float* b,
+                                 const float* mean, const float* rstd,
+                                 void* dx, float* dw, float* db, void* part,
+                                 void* coef, long long N, int C, int G,
+                                 long long S, long long L, int K,
+                                 void* stream) {
   if (N <= 0 || C <= 0 || S <= 0) return 0;
   const int bad = check(N, C, G, S, L, K);
   if (bad) return bad;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float2* p = static_cast<float2*>(part);
-  float2* q = static_cast<float2*>(coef);
   const bool vec =
       S % kPack == 0 && aligned16(dy) && aligned16(x) && aligned16(dx);
-  if (dtype == 0)
-    return vec ? backward<float, true>(dy, x, w, b, mean, rstd, dx, dw, db, p,
-                                       q, N, C, G, S, L, K, st)
-               : backward<float, false>(dy, x, w, b, mean, rstd, dx, dw, db,
-                                        p, q, N, C, G, S, L, K, st);
-  if (dtype == 1)
-    return vec ? backward<__nv_bfloat16, true>(dy, x, w, b, mean, rstd, dx,
-                                               dw, db, p, q, N, C, G, S, L,
-                                               K, st)
-               : backward<__nv_bfloat16, false>(dy, x, w, b, mean, rstd, dx,
-                                                dw, db, p, q, N, C, G, S, L,
-                                                K, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Backward f{dy, x, w, b, mean, rstd, dx, dw, db,
+                   static_cast<float2*>(part), static_cast<float2*>(coef), N,
+                   C, G, S, L, K, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, act, vec, f);
 }

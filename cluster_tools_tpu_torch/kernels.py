@@ -41,6 +41,25 @@ KERNELS: Dict[str, Kernel] = {
         name="groupnorm_gelu_bwd", route="cuda",
         source="cluster_tools_tpu_torch/csrc/groupnorm.cu",
         replaces="cluster_tools_tpu/models/unet.py:51-53"),
+    # the same pair with LeakyReLU or no activation, as Swin UNETR's
+    # InstanceNorms run it (models/swin_unetr.py); the JAX package has no
+    # such model
+    "groupnorm_leaky_relu": Kernel(
+        name="groupnorm_leaky_relu", route="cuda",
+        source="cluster_tools_tpu_torch/csrc/groupnorm.cu",
+        replaces="none: InstanceNorm + LeakyReLU of Swin UNETR"),
+    "groupnorm_leaky_relu_bwd": Kernel(
+        name="groupnorm_leaky_relu_bwd", route="cuda",
+        source="cluster_tools_tpu_torch/csrc/groupnorm.cu",
+        replaces="none: InstanceNorm + LeakyReLU of Swin UNETR"),
+    "groupnorm_none": Kernel(
+        name="groupnorm_none", route="cuda",
+        source="cluster_tools_tpu_torch/csrc/groupnorm.cu",
+        replaces="none: InstanceNorm of Swin UNETR"),
+    "groupnorm_none_bwd": Kernel(
+        name="groupnorm_none_bwd", route="cuda",
+        source="cluster_tools_tpu_torch/csrc/groupnorm.cu",
+        replaces="none: InstanceNorm of Swin UNETR"),
 }
 
 

@@ -167,6 +167,16 @@ def state_dict_to_flax_params(state_dict: Mapping[str, torch.Tensor]
             for name, (flax, kind) in _flax_names(state_dict).items()}
 
 
+def _unet_only(model_config: Mapping[str, Any], what: str) -> None:
+    """The JAX package's formats hold U-Nets: raise, by name, on a
+    configuration of another model (``"model"`` in :func:`models.train.
+    model_config`, as Swin UNETR's)."""
+    kind = model_config.get("model", "unet")
+    if kind != "unet":
+        raise ValueError(f"{what} holds UNet3D only, not {kind!r}: "
+                         "SwinUNETR has no checkpoint format")
+
+
 def save_checkpoint(path: str, model_config: Dict[str, Any],
                     state_dict: Mapping[str, torch.Tensor]) -> None:
     """Write ``model.json`` + ``params.npz`` in the JAX package's format.
@@ -174,6 +184,7 @@ def save_checkpoint(path: str, model_config: Dict[str, Any],
     ``model_config`` holds the kwargs of :func:`models.unet.create_unet`
     (``out_channels``, ``features``, ``anisotropic``).
     """
+    _unet_only(model_config, "save_checkpoint")
     os.makedirs(path, exist_ok=True)
     write_config(os.path.join(path, "model.json"), model_config)
     np.savez(os.path.join(path, "params.npz"),
@@ -192,6 +203,7 @@ def load_checkpoint(path: str, params: bool = True,
 
     with open(os.path.join(path, "model.json")) as f:
         model_config = dict(json.load(f))
+    _unet_only(model_config, "load_checkpoint")
     if "features" in model_config:
         model_config["features"] = tuple(model_config["features"])
     if not params:
@@ -378,6 +390,8 @@ def save_train_state(path: str, state) -> None:
     one once), into a temporary directory renamed into place (an
     existing ``path`` is replaced)."""
     from .orbax import write_tree
+
+    _unet_only(state.config, "save_train_state")
 
     write_tree(path, _orbax_leaves(state))
 

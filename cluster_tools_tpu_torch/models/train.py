@@ -1,4 +1,5 @@
-"""Training of the U-Net: the port of cluster_tools_tpu/models/train.py.
+"""Training of the U-Net and of Swin UNETR: the port of
+cluster_tools_tpu/models/train.py.
 
 * loss = balanced BCE + soft Dice on the affinity channels, in float32
   (:func:`affinity_loss`);
@@ -7,7 +8,10 @@
   Adam direction, no mask), written on tensors (:class:`AdamW`);
 * :func:`init_state` draws flax's initial distributions (LeCun-normal
   kernels, truncated at two standard deviations; zero biases; GroupNorm
-  scale 1) from an explicit ``torch.Generator``; the gradient is autograd's;
+  scale 1) from an explicit ``torch.Generator``; for Swin UNETR also its
+  Linear weights and relative-position bias tables (a normal of standard
+  deviation 0.02 truncated at two standard deviations) and LayerNorm
+  scales 1; the gradient is autograd's;
 * :func:`shard_train_step` runs the step over a ``data`` x ``space`` x
   ``model`` mesh (:mod:`..parallel.mesh`) in one driver process: the batch
   split over ``data``, z over ``space`` (a one-plane halo from the
@@ -21,11 +25,14 @@
   tensors that every step sends to the shards: autograd sums their
   gradients.
 
-Tensors are channels-first, as the port's ``UNet3D`` takes them: ``x`` is
+Tensors are channels-first, as the port's models take them: ``x`` is
 ``(B, C_in, D, H, W)``, the targets ``(B, C_out, D, H, W)``.  Parameters
-and both Adam moments are dicts keyed by the ``UNet3D`` ``state_dict``
+and both Adam moments are dicts keyed by the model's ``state_dict``
 names; the JAX package's train state carries over through
-``models/checkpoint.py``.
+``models/checkpoint.py``.  :func:`init_state`, :func:`make_train_step`,
+:func:`loss_and_grads` and :func:`model_config` take ``UNet3D`` and
+``SwinUNETR``; the sharded step is the U-Net's only and raises on any other
+model.
 """
 
 from __future__ import annotations
@@ -40,12 +47,15 @@ import torch.nn.functional as F
 from ..parallel import mesh as mesh_lib
 from ..parallel.mesh import Mesh, Placement, send
 from ..parallel.stencil import halo_exchange
+from .swin_unetr import SwinUNETR, WindowAttention
 from .unet import UNet3D, create_unet, no_tf32
 
 #: the loss clips its predictions to [CLIP, 1 - CLIP]
 CLIP = 1e-6
 #: flax GroupNorm's epsilon
 GN_EPS = 1e-6
+#: the standard deviation of Swin UNETR's Linear weights and bias tables
+SWIN_INIT_STD = 0.02
 
 
 # ---------------------------------------------------------------------------
@@ -139,23 +149,42 @@ class AdamW:
         f32 = np.float32
         bc1 = float(f32(1) - f32(self.B1) ** f32(count))
         bc2 = float(f32(1) - f32(self.B2) ** f32(count))
-        mu, nu, updates = {}, {}, {}
-        for k, g in grads.items():
-            g = g.detach()
-            mu[k] = (1 - self.B1) * g + self.B1 * state.mu[k]
-            nu[k] = (1 - self.B2) * (g * g) + self.B2 * state.nu[k]
-            direction = (mu[k] / bc1) / (
-                torch.sqrt(nu[k] / bc2 + self.EPS_ROOT) + self.EPS)
-            direction = direction + self.weight_decay * params[k].detach()
-            updates[k] = (-self.lr) * direction
-        return updates, AdamState(count, mu, nu)
+
+        if not grads:
+            return {}, AdamState(count, {}, {})
+        # the per-tensor ops of optax's formula, each over every tensor
+        # at once (a few fused launches on the card instead of a few per
+        # tensor: Swin UNETR has 151)
+        keys = list(grads)
+        g = [grads[k].detach() for k in keys]
+        p = [params[k].detach() for k in keys]
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - self.B1),
+                                torch._foreach_mul(
+                                    [state.mu[k] for k in keys], self.B1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.B2),
+            torch._foreach_mul([state.nu[k] for k in keys], self.B2))
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_add_(denom, self.EPS_ROOT)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.EPS)
+        direction = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        torch._foreach_add_(direction,
+                            torch._foreach_mul(p, self.weight_decay))
+        torch._foreach_mul_(direction, -self.lr)
+        return (dict(zip(keys, direction)),
+                AdamState(count, dict(zip(keys, mu)), dict(zip(keys, nu))))
 
 
 def apply_updates(params: Dict[Any, torch.Tensor],
                   updates: Dict[Any, torch.Tensor]
                   ) -> Dict[Any, torch.Tensor]:
-    return {k: (p.detach() + updates[k]).to(p.dtype)
-            for k, p in params.items()}
+    if not params:
+        return {}
+    keys = list(params)
+    new = torch._foreach_add([params[k].detach() for k in keys],
+                             [updates[k] for k in keys])
+    return {k: t.to(params[k].dtype) for k, t in zip(keys, new)}
 
 
 def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-5) -> AdamW:
@@ -173,7 +202,7 @@ class TrainState:
     tensors.  Sharded (``mesh`` set), each maps a name to the list of its
     per-shard tensors (one per mesh position, as :func:`~..parallel.mesh.
     shard` cuts them by ``placements[name]``).  ``config`` holds the
-    U-Net's ``create_unet`` kwargs, ``optimizer`` the AdamW settings."""
+    model's :func:`model_config`, ``optimizer`` the AdamW settings."""
 
     def __init__(self, params, opt_state: AdamState, step: int,
                  config: Optional[Dict[str, Any]] = None,
@@ -201,22 +230,40 @@ class TrainState:
         return TrainState(**fields)
 
 
-def model_config(model: UNet3D) -> Dict[str, Any]:
+def model_config(model: torch.nn.Module) -> Dict[str, Any]:
     """The ``create_unet`` kwargs of a U-Net (``model.json``'s keys, with
-    the input channels)."""
+    the input channels); for Swin UNETR ``"model": "swin_unetr"`` and the
+    ``create_swin_unetr`` kwargs."""
+    if isinstance(model, SwinUNETR):
+        return {"model": "swin_unetr", "in_channels": model.in_channels,
+                "out_channels": model.out_channels,
+                "feature_size": model.feature_size,
+                "depths": list(model.depths),
+                "num_heads": list(model.num_heads),
+                "window_size": model.window_size}
     return {"out_channels": int(model.head.out_channels),
             "features": list(model.features),
             "anisotropic": tuple(model.scale_factors[0]) == (1, 2, 2),
             "in_channels": int(model.encoders[0].convs[0].in_channels)}
 
 
-def init_params(model: UNet3D, generator: Optional[torch.Generator] = None
+def _truncated(shape, gen: torch.Generator) -> torch.Tensor:
+    """A standard normal truncated at +-2, drawn from ``gen``."""
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t
+
+
+def init_params(model: torch.nn.Module,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
     """flax's initial parameters for ``model``, drawn on the CPU from
-    ``generator`` (default: seed 0): every convolution and up-convolution
-    kernel LeCun-normal (a normal truncated at +-2, scaled to variance
-    1 / fan_in, fan_in = in_channels * kd * kh * kw), biases 0, GroupNorm
-    scales 1."""
+    ``generator`` (default: seed 0), module by module in
+    ``named_modules`` order: every convolution and up-convolution kernel
+    LeCun-normal (a normal truncated at +-2, scaled to variance 1 /
+    fan_in, fan_in = in_channels * kd * kh * kw), biases 0, GroupNorm and
+    LayerNorm scales 1; Linear weights and Swin UNETR's relative-position
+    bias tables a normal truncated at +-2 times :data:`SWIN_INIT_STD`."""
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(0)
     params = {}
@@ -230,18 +277,25 @@ def init_params(model: UNet3D, generator: Optional[torch.Generator] = None
             # flax's variance_scaling divides by the truncated normal's
             # standard deviation, so the draws have variance 1 / fan_in
             std = float(np.sqrt(1.0 / fan_in) / .87962566103423978)
-            t = torch.empty(w.shape, dtype=torch.float32)
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                        generator=gen)
-            params[pre + "weight"] = t * std
-            params[pre + "bias"] = torch.zeros(mod.bias.shape)
-        elif isinstance(mod, torch.nn.GroupNorm):
+            params[pre + "weight"] = _truncated(w.shape, gen) * std
+            if mod.bias is not None:
+                params[pre + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
             params[pre + "weight"] = torch.ones(mod.weight.shape)
             params[pre + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, torch.nn.Linear):
+            params[pre + "weight"] = _truncated(mod.weight.shape, gen) \
+                * SWIN_INIT_STD
+            if mod.bias is not None:
+                params[pre + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, WindowAttention):
+            table = mod.relative_position_bias_table
+            params[pre + "relative_position_bias_table"] = \
+                _truncated(table.shape, gen) * SWIN_INIT_STD
     return {k: params[k] for k in model.state_dict()}
 
 
-def init_state(model: UNet3D, input_shape: Sequence[int],
+def init_state(model: torch.nn.Module, input_shape: Sequence[int],
                generator: Optional[torch.Generator] = None,
                lr: float = 1e-3, device: str = "cuda") -> TrainState:
     """A fresh train state for ``model`` on ``device`` (the card unless
@@ -260,7 +314,7 @@ def init_state(model: UNet3D, input_shape: Sequence[int],
                       optimizer=opt.config())
 
 
-def loss_and_grads(model: UNet3D, params: Dict[str, torch.Tensor],
+def loss_and_grads(model: torch.nn.Module, params: Dict[str, torch.Tensor],
                    x: torch.Tensor, y: torch.Tensor
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``affinity_loss(model(x), y)`` and its gradient with respect to
@@ -280,7 +334,7 @@ def _optimizer_of(state: TrainState, lr: Optional[float]) -> AdamW:
                  state.optimizer["weight_decay"])
 
 
-def make_train_step(model: UNet3D, lr: float = 1e-3):
+def make_train_step(model: torch.nn.Module, lr: float = 1e-3):
     """The train-step function ``(state, x, y) -> (state, loss)``; the
     state it returns is new, the one it was given stays valid."""
 
@@ -304,6 +358,13 @@ def make_train_step(model: UNet3D, lr: float = 1e-3):
 BATCH_PLACEMENT = Placement(("data", None, "space"))
 
 
+def _unet_only(model: torch.nn.Module, what: str) -> None:
+    """The sharded step is the U-Net's: raise, by name, on another model."""
+    if not isinstance(model, UNet3D):
+        raise TypeError(f"{what} shards UNet3D only, not "
+                        f"{type(model).__name__}")
+
+
 def _masters(mesh: Mesh, placement: Placement, ndim: int) -> List[int]:
     """For every mesh position, the first position holding the same piece
     of a tensor placed by ``placement`` (its master)."""
@@ -324,6 +385,7 @@ class _ShardedUNet:
 
     def __init__(self, model: UNet3D, mesh: Mesh,
                  placements: Dict[str, Placement]):
+        _unet_only(model, "the sharded step")
         self.model = model
         self.mesh = mesh
         self.placements = placements
@@ -547,6 +609,7 @@ def make_sharded_step(model: UNet3D, lr: Optional[float] = None):
     """The train step of a sharded state: ``(state, x, y) -> (state,
     loss)``; ``x`` and ``y`` are global tensors (sharded by
     ``BATCH_PLACEMENT``) or lists of shards."""
+    _unet_only(model, "make_sharded_step")
 
     def step(state: TrainState, x, y):
         mesh = state.mesh
@@ -627,6 +690,7 @@ def shard_train_step(model: UNet3D, state: TrainState, mesh: Mesh,
     over ``data``, z over ``space``).  ``step(state, x, y)`` takes global
     tensors or their shards; the sharded step's loss and gradients are
     the unsharded step's up to the order of float sums."""
+    _unet_only(model, "shard_train_step")
     placements = mesh_lib.torch_param_sharding(mesh, model)
     placed = place_state(state, mesh, placements)
     return make_sharded_step(model, lr), placed, BATCH_PLACEMENT

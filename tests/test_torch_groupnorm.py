@@ -176,8 +176,8 @@ def test_wrapper_checks_what_the_kernels_take():
     norm._check(x, w, b, 8, torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         norm._check(x.transpose(2, 3), w, b, 8, torch.bfloat16)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        norm._check(x.half(), w, b, 8, torch.float16)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        norm._check(x.double(), w, b, 8, torch.float64)
     with pytest.raises(ValueError, match="writes the input's dtype"):
         norm._check(x, w, b, 8, torch.float32)
     with pytest.raises(ValueError, match="do not split"):
